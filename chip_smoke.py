@@ -12,19 +12,27 @@ JSON line:
    nvcc took to build the kernel library from csrc/.
 2. kernel: the red-black sweep kernel against its plain torch version on
    the card, at every grid size the main path gives it (31² to 1023²) and a
-   ragged 161×96, with the 5-point, the 9-point and an asymmetric
-   radius-4 stencil, ω = 1.15, max|Δ| < 5e-5; median CUDA-event times of
+   ragged 161×96, with a stencil for every instance of the kernel (the
+   5-point and the 9-point stencil, a radius-1 stencil of another pattern,
+   a radius-2 stencil and an asymmetric radius-4 one), ω = 1.15,
+   max|Δ| < 5e-5; median CUDA-event times of
    the kernel and of the plain version at 511² and 1023², as device time
    (`ms`, calls queued back to back) and as the span of one call with the
    host's launch overhead (`call_ms`).
-3. main path: the 2D Poisson bench problem (levels 5-9, 511² finest, f32),
+3. levels: the kernel's device time on the 5-point stencil at every level
+   of the main path (63² to 1023²), L2 warm as the main path finds it
+   (timed as scripts/torch_rb_sweep_levels.py times it), beside the
+   level's bound (12 bytes a point over 3.35 TB/s) and the
+   share of that bound it reaches, and the launch floor: the device time
+   of an empty kernel queued the same way.
+4. main path: the 2D Poisson bench problem (levels 5-9, 511² finest, f32),
    16 seeded depth-4 grammar trees and the stored tuned champion, then the
    champion in the 1023² configuration of scripts/headline_1024.py (levels
    6-10), through TorchProgramGenerator.generate_and_evaluate on the card,
    with the kernel's launch counts by grid size; then the 511² champion
    again on the CPU through the same port, which must agree (ρ within 2 %,
    iterations within ±1).
-4. profile: one more evaluation of the 511² champion under
+5. profile: one more evaluation of the 511² champion under
    torch.profiler: wall time, device busy time and idle share, device
    operations, the kernel's share; the full table by kernel goes to
    chiprun_out/profile_champion_eval.txt.
@@ -47,13 +55,14 @@ import time
 import numpy as np
 import torch
 
-from evostencils_tpu.grammar import gp
-from evostencils_tpu.grammar.multigrid import generate_primitive_set
-from evostencils_tpu.stencils import constant
-from evostencils_tpu.utils.champions import apply_stored_omegas, parse_champion_file
 from evostencils_torch.backend.evaluation import TorchProgramGenerator
+from evostencils_torch.grammar import gp
+from evostencils_torch.grammar.multigrid import generate_primitive_set
 from evostencils_torch.ops import _build, rb_sweep
 from evostencils_torch.problems.poisson import poisson_2d
+from evostencils_torch.stencils import constant
+from evostencils_torch.utils.champions import apply_stored_omegas, parse_champion_file
+from scripts.torch_rb_sweep_levels import LEVELS, bound_ms, median_device_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CHAMPION = os.path.join(ROOT, "artifacts", "poisson2d_champion_r2_tuned.txt")
@@ -69,6 +78,11 @@ STENCILS = {
          ((0, -1), -1 / 3), ((1, 1), -1 / 3), ((1, -1), -1 / 3), ((-1, 1), -1 / 3),
          ((-1, -1), -1 / 3))
     ),
+    # Radius 1, neither the 5-point nor the 9-point pattern.
+    "skew": constant.Stencil((((0, 0), 2.0), ((1, 1), -0.5), ((-1, 0), -0.25), ((0, -1), -0.25))),
+    "radius-2": constant.Stencil(
+        (((0, 0), 2.5), ((2, -1), -0.5), ((-2, 1), 0.75), ((0, 2), -0.25), ((1, 0), -0.5))
+    ),
     # No symmetry: a sign or axis error in the offsets shows up here.
     "asymmetric": constant.Stencil(
         (((0, 0), 4.0), ((1, 0), -1.5), ((-1, 0), -0.5), ((0, 1), -0.75), ((0, -2), -0.25),
@@ -76,8 +90,8 @@ STENCILS = {
     ),
 }
 # Every level of the main path (31²-511² in the bench configuration, 1023²
-# in the headline one; 31² lies inside one 32×32 tile) and the ragged case
-# of the row-blocked kernel's tests in tests/test_pallas.py.
+# in the headline one) and the ragged case of the row-blocked kernel's
+# tests in tests/test_pallas.py.
 CHECKED = [(31, 31), (63, 63), (127, 127), (255, 255), (511, 511), (1023, 1023), (161, 96)]
 # The Pallas call each grid size went to on the TPU (whole-array up to
 # 512² cells, row-blocked above: pallas_kernels.py:273), with its timed size.
@@ -110,27 +124,6 @@ def median_call_ms(fn, repeats: int = 30, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
-def median_device_ms(fn, calls: int = 50, repeats: int = 5) -> float:
-    """Median device time of one fn() call: `calls` calls back to back
-    between two CUDA events, queued behind a spin kernel so that the host
-    enqueues them all before the first runs and its launch overhead stays
-    out of the span."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(100_000_000)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
     return float(np.median(times))
 
 
@@ -186,11 +179,31 @@ def phase_kernel(failures: list) -> dict:
             entry["plain_ms"] = median_device_ms(plain)
             entry["call_ms"] = median_call_ms(kernel)
             entry["plain_call_ms"] = median_call_ms(plain)
-            # 12 bytes a point: read u and f, write the result.
-            entry["kernel_GB_per_s"] = 12 * shape[0] * shape[1] / entry["ms"] / 1e6
+            entry["bound_ms"] = bound_ms(shape)
+            entry["share_of_bound"] = entry["bound_ms"] / entry["ms"]
         by_shape[shape] = entry
         emit({"phase": "kernel", **entry})
     return by_shape
+
+
+def phase_levels() -> list:
+    """The kernel's device time at each level of the main path, with the
+    5-point stencil, beside the level's bound and the launch floor."""
+    emit({"phase": "levels", "launch_floor_ms": median_device_ms(lambda: torch.cuda._sleep(0))})
+    rng = np.random.default_rng(4)
+    omega = torch.full((1,), OMEGA, dtype=torch.float32, device="cuda")
+    stencil = STENCILS["5-point"]
+    levels = []
+    for shape in LEVELS:
+        u, f = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()
+                for _ in range(2))
+        ms = median_device_ms(
+            lambda: rb_sweep.red_black_collective_jacobi_sweep(u, f, omega, stencil))
+        level = {"shape": list(shape), "ms": ms, "bound_ms": bound_ms(shape),
+                 "share_of_bound": bound_ms(shape) / ms}
+        levels.append(level)
+        emit({"phase": "levels", **level})
+    return levels
 
 
 def bench_pset(problem):
@@ -353,6 +366,7 @@ def main() -> int:
     failures = []
     device = phase_device()
     kernel = phase_kernel(failures)
+    phase_levels()
     launches_by_role, generator, champion = phase_main_path(failures)
     phase_profile(generator, champion)
     if failures:
@@ -368,6 +382,10 @@ def main() -> int:
             "max_abs_err": max(e for s in CHECKED if role(s) == name
                                for e in kernel[s]["max_abs_err"].values()),
             "ms": kernel[timed]["ms"], "plain_ms": kernel[timed]["plain_ms"],
+            "bound_ms": kernel[timed]["bound_ms"], "bound_by": "bytes",
+            "share_of_bound": kernel[timed]["share_of_bound"],
+            # No single PyTorch call computes a red-black collective-Jacobi step.
+            "library_ms": None,
         })
     emit({"kernels": kernels})
     print(device["nvidia_smi"], flush=True)

@@ -2,9 +2,16 @@
 PyTorch and CUDA.
 
 The JAX package `evostencils_tpu` stays the reference.  This package
-imports its array-free layers as they are (`ir`, `stencils`, `grammar`,
-`utils.champions`) so both backends share one grammar and one IR, and owns
-every layer that touches arrays:
+imports nothing of it: it keeps its own copies of the reference's
+array-free layers, which differ from them only in their import paths, so
+a grammar tree string compiles to the same IR on both sides:
+
+    stencils/   constant and periodic stencil algebra, stencil gallery
+    ir/         the multigrid expression IR, reference cycles, canonical strings
+    grammar/    the typed G3P grammar (gp, multigrid, typing)
+    utils/      champions.py: the stored champions' file format
+
+and owns every layer that touches arrays:
 
     problems/   jax-free Problem and the 2D Poisson family
     ops/        stencils, transfers, coarse solve, smoothers, and the

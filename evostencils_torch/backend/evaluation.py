@@ -28,12 +28,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from evostencils_tpu.ir import base
-from evostencils_tpu.ir.transformations import canonical_string, collect_cycles
-from evostencils_tpu.stencils import periodic
 from evostencils_torch import NotPortedError, numpy_dtype
 from evostencils_torch.backend.lowering import CycleLowering
+from evostencils_torch.ir import base
+from evostencils_torch.ir.transformations import canonical_string, collect_cycles
 from evostencils_torch.ops import stencil_ops as sops
+from evostencils_torch.stencils import periodic
 
 # A power-iteration rate of exactly 0.0 is an f32 underflow of a superb
 # cycle's error norm — clamp to a finite, best-ordered value.
@@ -179,7 +179,7 @@ class TorchProgramGenerator:
         return grids[0].level
 
     def _finest_operator_for(self, expression):
-        from evostencils_tpu.grammar import multigrid as mg
+        from evostencils_torch.grammar import multigrid as mg
 
         grids = expression.grid if isinstance(expression.grid, list) else [expression.grid]
         return mg.generate_system_operator(

@@ -27,14 +27,14 @@ from typing import Callable, Sequence, Tuple
 import numpy as np
 import torch
 
-from evostencils_tpu.ir import base, system
-from evostencils_tpu.ir import partitioning as part
-from evostencils_tpu.ir.krylov import KrylovSubspaceMethod
-from evostencils_tpu.ir.transformations import canonical_string, collect_cycles
-from evostencils_tpu.stencils import periodic
 from evostencils_torch import NotPortedError
+from evostencils_torch.ir import base, system
+from evostencils_torch.ir import partitioning as part
+from evostencils_torch.ir.krylov import KrylovSubspaceMethod
+from evostencils_torch.ir.transformations import canonical_string, collect_cycles
 from evostencils_torch.ops import coarse_solve, intergrid, rb_sweep, smoothers
 from evostencils_torch.ops import stencil_ops as sops
+from evostencils_torch.stencils import periodic
 
 
 def _is_partitioning(p, kind) -> bool:

@@ -30,8 +30,8 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from evostencils_tpu.ir import base, partitioning as part, system
-from evostencils_tpu.ir.transformations import canonical_string
+from evostencils_torch.ir import base, partitioning as part, system
+from evostencils_torch.ir.transformations import canonical_string
 from evostencils_torch.ops import stencil_ops as sops
 
 
@@ -165,8 +165,8 @@ class CycleVM:
     def _preregister(self):
         """Register the standard grammar surface up front, in the
         reference's order, so opcode numbers match the reference VM's."""
-        from evostencils_tpu.grammar import multigrid as mg
-        from evostencils_tpu.ir import smoother as sm
+        from evostencils_torch.grammar import multigrid as mg
+        from evostencils_torch.ir import smoother as sm
 
         problem = self.problem
         scalar = len(problem.fields) == 1

@@ -15,125 +15,301 @@
 // before that colour.  A 9-point stencil couples same-colour diagonal
 // neighbours, so the kernel never updates in place inside one colour.
 //
-// Design: each thread block owns a TILE x TILE output tile.  It stages u
-// over the tile plus 2*MAX_RADIUS and f over the tile plus MAX_RADIUS in
-// shared memory (zero outside the domain), computes red on tile+MAX_RADIUS
-// from old u into a second shared buffer, synchronises, computes black on
-// the tile from that buffer, and writes the tile to `out`, which is never
-// `u`.  Halo points are recomputed by neighbouring blocks, so no block
-// depends on another.
+// What bounds it.  The least traffic is 12 bytes a point (read u and f,
+// write the result once); the stencil costs 2 flops an entry a colour, far
+// below the card's float32 rate, so bytes set the bound: 0.94 us at 511²
+// and 3.75 us at 1023² over 3.35 TB/s.  The levels 63²-255² move under
+// 0.8 MB, so there the launch (an empty kernel takes about 1.8 us back to
+// back) and one block's serial path (load, red, barrier, black, store)
+// bound it, not bytes: a block's serial path must hold one memory latency
+// and few instructions.  At 511² and 1023² the instructions a point and
+// the halo re-reads decide how close the kernel comes to the bytes.
 //
-// What bounds it: device-memory bandwidth.  The minimum traffic is 12 bytes
-// per point (read u and f, write u once); the stencil costs 2 flops per
-// entry per colour.  Halo re-reads mostly hit L1/L2.  Vectorised loads, TMA
-// and temporal blocking over several steps are later work.
+// Design:
+// * Radius as a template parameter R in {1, 2, 4}: the halo is sized for
+//   the stencil (the main path's 5-point stencil stages 2R = 2 extra rows
+//   and columns of u, not 8).  The wrapper picks the smallest R that
+//   covers the stencil (ops/rb_sweep.py: template_radius).
+// * The stencil is passed by value as a dense (2R+1)² grid of coefficients
+//   and a bit mask of the entries present.  The entry loop unrolls with
+//   compile-time shared-memory offsets; the main path's 5-point stencil
+//   has instances of its own, with no mask test at all.
+// * A block's red region is 32 columns wide, one lane a column while
+//   staging; its output tile is the 32 - 2R columns inside it.  No thread
+//   divides or takes a remainder.  Each stage's loop has a compile-time
+//   trip count and is unrolled, so a thread starts all its loads before it
+//   waits on any: the block's serial path holds one memory latency.
+// * In the two half-sweeps a warp takes two rows at a time and each lane
+//   one point of the colour being updated, so no lane idles on the other
+//   colour and the two half-warps hit the two parities of the banks.
+// * Red results go to their own buffer; the black update reads each
+//   neighbour from it or from old u according to the parity of its offset,
+//   known at compile time.  Blocks recompute their halo's red values, so
+//   no block depends on another, and `out` is never `u`.
+// * Tile height from the grid size (ops/rb_sweep.py: launch_config): the
+//   fastest instantiated shape at each level, timed by
+//   scripts/torch_rb_sweep_levels.py --configs, which also times the
+//   other instantiated shapes.
+// * omega stays a device pointer, for a later CUDA graph.
+// Not done: vector loads and TMA need 16-byte aligned rows, and every level
+// width is 2^k - 1; padding the port's array layout would change every op.
 
 #include <cuda_runtime.h>
+#include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int TILE = 32;
-constexpr int MAX_RADIUS = 4;
-constexpr int MAX_ENTRIES = (2 * MAX_RADIUS + 1) * (2 * MAX_RADIUS + 1);
-constexpr int RED_DIM = TILE + 2 * MAX_RADIUS;  // red points the tile's black update reads
-constexpr int U_DIM = TILE + 4 * MAX_RADIUS;    // old u those red points read
-constexpr int THREADS_X = 32;
-constexpr int THREADS_Y = 8;
-constexpr int THREADS = THREADS_X * THREADS_Y;
+constexpr int WARP = 32;
+constexpr int MAX_SIDE = 9;  // 2 * 4 + 1: the largest radius is 4
+constexpr int MAX_ENTRIES = MAX_SIDE * MAX_SIDE;
 
-__global__ void __launch_bounds__(THREADS)
+// The stencil by value: value[(di + R) * (2R + 1) + (dj + R)] for the entry
+// at row offset di and column offset dj, present[k / 32] bit k % 32 set
+// where the stencil has an entry (an explicit zero keeps its product).
+template <int R>
+struct Coefficients {
+  static constexpr int SIDE = 2 * R + 1;
+  static constexpr int COUNT = SIDE * SIDE;
+  float value[COUNT];
+  uint32_t present[(COUNT + 31) / 32];
+};
+
+// Which entries are present: known at compile time for the main path's
+// 5-point stencil (STAR, radius 1); GENERIC reads the bit mask.
+enum Pattern { GENERIC, STAR };
+
+template <int R, Pattern P>
+__device__ __forceinline__ bool has_entry(const Coefficients<R>& a, int k) {
+  constexpr int SIDE = 2 * R + 1;
+  if constexpr (P == STAR) {
+    const int di = k / SIDE - R, dj = k % SIDE - R;
+    return di * di + dj * dj <= 1;
+  } else {
+    return (a.present[k / 32] >> (k % 32)) & 1u;
+  }
+}
+
+// One block: the output tile of TILE_ROWS rows and 32 - 2R columns inside a
+// red region of TILE_ROWS + 2R rows and 32 columns.  In the two half-sweeps
+// a warp takes two rows at a time, lanes 0-15 the first and 16-31 the
+// second, each lane one point of the colour being updated (its column
+// parity follows the row), so no lane idles on a point of the other colour
+// and the two half-warps hit the two parities of shared-memory banks.
+template <int R, Pattern P, int TILE_ROWS, int WARPS>
+__global__ void __launch_bounds__(WARP * WARPS)
 rb_sweep_kernel(const float* __restrict__ u, const float* __restrict__ f,
                 float* __restrict__ out, const float* __restrict__ omega,
-                const int* __restrict__ offsets, const float* __restrict__ values,
-                int n_entries, float inv_diag, int rows, int cols) {
-  __shared__ float s_u[U_DIM][U_DIM + 1];
-  __shared__ float s_f[RED_DIM][RED_DIM + 1];
-  __shared__ float s_red[RED_DIM][RED_DIM + 1];
-  __shared__ int s_di[MAX_ENTRIES];
-  __shared__ int s_dj[MAX_ENTRIES];
-  __shared__ float s_val[MAX_ENTRIES];
+                const Coefficients<R> a, float inv_diag, int rows, int cols) {
+  constexpr int SIDE = 2 * R + 1;
+  constexpr int RED_ROWS = TILE_ROWS + 2 * R;  // red points the black update reads
+  constexpr int U_ROWS = TILE_ROWS + 4 * R;    // old u those red points read
+  constexpr int U_COLS = WARP + 2 * R;
+  __shared__ float s_u[U_ROWS][U_COLS];
+  __shared__ float s_f[RED_ROWS][WARP];
+  __shared__ float s_red[RED_ROWS][WARP];
 
-  const int tid = threadIdx.y * THREADS_X + threadIdx.x;
-  const int row0 = blockIdx.y * TILE;
-  const int col0 = blockIdx.x * TILE;
+  const int lane = threadIdx.x;
+  const int warp = threadIdx.y;
+  const int row0 = blockIdx.y * TILE_ROWS;
+  // Red-region column c is global column col0 - R + c, row r is row0 - R + r.
+  const int col0 = blockIdx.x * (WARP - 2 * R);
+  const float w = __ldg(omega) * inv_diag;
 
-  for (int e = tid; e < n_entries; e += THREADS) {
-    s_di[e] = offsets[2 * e];
-    s_dj[e] = offsets[2 * e + 1];
-    s_val[e] = values[e];
-  }
-  for (int k = tid; k < U_DIM * U_DIM; k += THREADS) {
-    const int i = k / U_DIM, j = k % U_DIM;
-    const int gi = row0 - 2 * MAX_RADIUS + i, gj = col0 - 2 * MAX_RADIUS + j;
-    const bool inside = gi >= 0 && gi < rows && gj >= 0 && gj < cols;
-    s_u[i][j] = inside ? u[(size_t)gi * cols + gj] : 0.0f;
-  }
-  for (int k = tid; k < RED_DIM * RED_DIM; k += THREADS) {
-    const int i = k / RED_DIM, j = k % RED_DIM;
-    const int gi = row0 - MAX_RADIUS + i, gj = col0 - MAX_RADIUS + j;
-    const bool inside = gi >= 0 && gi < rows && gj >= 0 && gj < cols;
-    s_f[i][j] = inside ? f[(size_t)gi * cols + gj] : 0.0f;
+  // Stage u over the red region plus R and f over the red region, zero
+  // outside the domain.  Loads first, then the stores, so that all of a
+  // thread's loads are in flight together.
+  {
+    constexpr int U_STEPS = (U_ROWS + WARPS - 1) / WARPS;
+    constexpr int F_STEPS = (RED_ROWS + WARPS - 1) / WARPS;
+    float head[U_STEPS], tail[U_STEPS], fv[F_STEPS];
+    const int gj_head = col0 - 2 * R + lane;  // u column lane
+    const int gj_tail = gj_head + WARP;       // u column lane + 32, lanes < 2R
+    const int gj_f = col0 - R + lane;
+    const bool head_in = static_cast<unsigned>(gj_head) < static_cast<unsigned>(cols);
+    const bool tail_in = lane < 2 * R && gj_tail < cols;
+    const bool f_in = static_cast<unsigned>(gj_f) < static_cast<unsigned>(cols);
+#pragma unroll
+    for (int s = 0; s < U_STEPS; ++s) {
+      const int r = warp + s * WARPS;
+      const int gi = row0 - 2 * R + r;
+      const bool row_in = r < U_ROWS && static_cast<unsigned>(gi) < static_cast<unsigned>(rows);
+      const float* row = u + static_cast<ptrdiff_t>(gi) * cols;
+      head[s] = row_in && head_in ? __ldg(row + gj_head) : 0.0f;
+      tail[s] = row_in && tail_in ? __ldg(row + gj_tail) : 0.0f;
+    }
+#pragma unroll
+    for (int s = 0; s < F_STEPS; ++s) {
+      const int r = warp + s * WARPS;
+      const int gi = row0 - R + r;
+      const bool in = r < RED_ROWS && static_cast<unsigned>(gi) < static_cast<unsigned>(rows);
+      fv[s] = in && f_in ? __ldg(f + static_cast<ptrdiff_t>(gi) * cols + gj_f) : 0.0f;
+    }
+#pragma unroll
+    for (int s = 0; s < U_STEPS; ++s) {
+      const int r = warp + s * WARPS;
+      if (r < U_ROWS) {
+        s_u[r][lane] = head[s];
+        if (lane < 2 * R) s_u[r][lane + WARP] = tail[s];
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < F_STEPS; ++s) {
+      const int r = warp + s * WARPS;
+      if (r < RED_ROWS) s_f[r][lane] = fv[s];
+    }
   }
   __syncthreads();
 
-  const float w = omega[0] * inv_diag;
+  const int half = lane >> 4;
+  const int pair = 2 * (lane & 15);  // the lane's even column of a pair
 
-  // Red half-sweep on the tile plus MAX_RADIUS, from old u only.  Points
-  // outside the domain stay zero: the black sweep reads them as Dirichlet.
-  for (int k = tid; k < RED_DIM * RED_DIM; k += THREADS) {
-    const int i = k / RED_DIM, j = k % RED_DIM;
-    const int gi = row0 - MAX_RADIUS + i, gj = col0 - MAX_RADIUS + j;
-    float v = 0.0f;
-    if (gi >= 0 && gi < rows && gj >= 0 && gj < cols) {
-      const int ui = i + MAX_RADIUS, uj = j + MAX_RADIUS;
-      v = s_u[ui][uj];
-      if (((gi + gj) & 1) == 0) {
+  // Red half-sweep on the red region, from old u only.  Red points outside
+  // the domain are zero: the black update reads them as Dirichlet values.
+  // Black points of this buffer are never read.
+#pragma unroll
+  for (int s = 0; s < (RED_ROWS + 2 * WARPS - 1) / (2 * WARPS); ++s) {
+    const int r = 2 * (warp + s * WARPS) + half;
+    if (r < RED_ROWS) {
+      const int gi = row0 - R + r;
+      const int c = pair + ((gi + col0 - R) & 1);  // (gi + gj) even
+      const int gj = col0 - R + c;
+      float v = 0.0f;
+      if (static_cast<unsigned>(gi) < static_cast<unsigned>(rows) &&
+          static_cast<unsigned>(gj) < static_cast<unsigned>(cols)) {
         float au = 0.0f;
-        for (int e = 0; e < n_entries; ++e) {
-          au += s_val[e] * s_u[ui + s_di[e]][uj + s_dj[e]];
+#pragma unroll
+        for (int k = 0; k < SIDE * SIDE; ++k) {
+          if (has_entry<R, P>(a, k)) au = fmaf(a.value[k], s_u[r + k / SIDE][c + k % SIDE], au);
         }
-        v += w * (s_f[i][j] - au);
+        v = s_u[r + R][c + R] + w * (s_f[r][c] - au);
       }
+      s_red[r][c] = v;
     }
-    s_red[i][j] = v;
   }
   __syncthreads();
 
-  // Black half-sweep on the tile, from the post-red values.
-  for (int k = tid; k < TILE * TILE; k += THREADS) {
-    const int i = k / TILE, j = k % TILE;
-    const int gi = row0 + i, gj = col0 + j;
-    if (gi >= rows || gj >= cols) continue;
-    const int ri = i + MAX_RADIUS, rj = j + MAX_RADIUS;
-    float v = s_red[ri][rj];
-    if (((gi + gj) & 1) == 1) {
-      float au = 0.0f;
-      for (int e = 0; e < n_entries; ++e) {
-        au += s_val[e] * s_red[ri + s_di[e]][rj + s_dj[e]];
+  // Black half-sweep on the output tile: a neighbour at an odd offset is
+  // red (post-red value), at an even offset black (old u).  Each lane also
+  // writes the red point beside its black one.
+#pragma unroll
+  for (int s = 0; s < (TILE_ROWS + 2 * WARPS - 1) / (2 * WARPS); ++s) {
+    const int t = 2 * (warp + s * WARPS) + half;
+    const int gi = row0 + t;
+    if (t < TILE_ROWS && gi < rows) {
+      const int r = t + R;
+      const int cb = pair + ((gi + col0 - R + 1) & 1);  // (gi + gj) odd
+      const int cr = cb ^ 1;
+      float* out_row = out + static_cast<ptrdiff_t>(gi) * cols;
+      const int gjb = col0 - R + cb, gjr = col0 - R + cr;
+      if (cb >= R && cb < WARP - R && gjb < cols) {
+        float au = 0.0f;
+#pragma unroll
+        for (int k = 0; k < SIDE * SIDE; ++k) {
+          const int di = k / SIDE - R, dj = k % SIDE - R;
+          if (has_entry<R, P>(a, k)) {
+            const float x = ((di + dj) & 1) ? s_red[r + di][cb + dj]
+                                            : s_u[r + R + di][cb + R + dj];
+            au = fmaf(a.value[k], x, au);
+          }
+        }
+        out_row[gjb] = s_u[r + R][cb + R] + w * (s_f[r][cb] - au);
       }
-      v += w * (s_f[ri][rj] - au);
+      if (cr >= R && cr < WARP - R && gjr < cols) out_row[gjr] = s_red[r][cr];
     }
-    out[(size_t)gi * cols + gj] = v;
   }
+}
+
+template <int R, Pattern P, int TILE_ROWS, int WARPS>
+cudaError_t launch(const float* u, const float* f, float* out, const float* omega,
+                   const Coefficients<R>& a, float inv_diag, int rows, int cols,
+                   cudaStream_t stream) {
+  constexpr int TILE_COLS = WARP - 2 * R;
+  const dim3 block(WARP, WARPS);
+  const dim3 grid((cols + TILE_COLS - 1) / TILE_COLS, (rows + TILE_ROWS - 1) / TILE_ROWS);
+  rb_sweep_kernel<R, P, TILE_ROWS, WARPS>
+      <<<grid, block, 0, stream>>>(u, f, out, omega, a, inv_diag, rows, cols);
+  return cudaGetLastError();
+}
+
+template <int R, Pattern P>
+cudaError_t launch_tile(int tile_rows, int warps, const float* u, const float* f, float* out,
+                        const float* omega, const Coefficients<R>& a, float inv_diag,
+                        int rows, int cols, cudaStream_t stream) {
+#define RB_TILE(TR, W)                                                                \
+  if (tile_rows == TR && warps == W)                                                  \
+    return launch<R, P, TR, W>(u, f, out, omega, a, inv_diag, rows, cols, stream);
+  RB_TILE(4, 4)
+  RB_TILE(8, 4)
+  RB_TILE(8, 8)
+  RB_TILE(12, 4)
+  RB_TILE(16, 4)
+  RB_TILE(16, 8)
+  RB_TILE(32, 8)
+#undef RB_TILE
+  return cudaErrorInvalidValue;
+}
+
+// The stencil's coefficients for radius R out of the 9 x 9 host arrays, and
+// the launch with the pattern known at compile time where there is one.
+template <int R>
+cudaError_t launch_radius(int tile_rows, int warps, const float* u, const float* f,
+                          float* out, const float* omega, const float* dense,
+                          const uint32_t* present, float inv_diag, int rows, int cols,
+                          cudaStream_t stream) {
+  Coefficients<R> a;
+  bool star = true;
+  for (int k = 0; k < Coefficients<R>::COUNT; ++k) {
+    const int di = k / Coefficients<R>::SIDE - R, dj = k % Coefficients<R>::SIDE - R;
+    const int m = (di + 4) * MAX_SIDE + (dj + 4);
+    const bool has = (present[m / 32] >> (m % 32)) & 1u;
+    a.value[k] = dense[m];
+    if (k % 32 == 0) a.present[k / 32] = 0;
+    if (has) a.present[k / 32] |= 1u << (k % 32);
+    star = star && has == (di * di + dj * dj <= 1);
+  }
+  if constexpr (R == 1) {
+    if (star) return launch_tile<R, STAR>(tile_rows, warps, u, f, out, omega, a, inv_diag, rows, cols, stream);
+  }
+  return launch_tile<R, GENERIC>(tile_rows, warps, u, f, out, omega, a, inv_diag, rows, cols, stream);
 }
 
 }  // namespace
 
 // u, f, out: rows x cols row-major float32 on the device; out must not
-// alias u.  omega: one float on the device.  offsets: 2*n_entries ints
-// (row, col) on the device, each |offset| <= 4; values: n_entries floats on
-// the device.  Launches on `stream` without synchronising and returns
-// cudaGetLastError().
-extern "C" int rb_sweep_f32(const float* u, const float* f, float* out,
-                            const float* omega, const int* offsets,
-                            const float* values, int n_entries, float inv_diag,
-                            int rows, int cols, cudaStream_t stream) {
-  if (n_entries < 0 || n_entries > MAX_ENTRIES || rows <= 0 || cols <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
+// alias u.  omega: one float on the device.  dense: 81 floats in host
+// memory, the stencil's coefficient at row offset di and column offset dj
+// in dense[(di + 4) * 9 + (dj + 4)]; present: 3 words in host memory, bit
+// k % 32 of word k / 32 set where the stencil has the entry k.  radius
+// (1, 2 or 4) must cover every entry; tile_rows and warps pick the block
+// shape.  Launches on `stream` without synchronising and returns
+// cudaGetLastError(), or cudaErrorInvalidValue for arguments it does not
+// take.
+extern "C" int rb_sweep_f32(const float* u, const float* f, float* out, const float* omega,
+                            const float* dense, const uint32_t* present, int radius,
+                            int tile_rows, int warps, float inv_diag, int rows, int cols,
+                            cudaStream_t stream) {
+  if (rows <= 0 || cols <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  for (int m = 0; m < MAX_ENTRIES; ++m) {
+    const int di = m / MAX_SIDE - 4, dj = m % MAX_SIDE - 4;
+    const bool has = (present[m / 32] >> (m % 32)) & 1u;
+    if (has && (di < -radius || di > radius || dj < -radius || dj > radius)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
-  const dim3 block(THREADS_X, THREADS_Y);
-  const dim3 grid((cols + TILE - 1) / TILE, (rows + TILE - 1) / TILE);
-  rb_sweep_kernel<<<grid, block, 0, stream>>>(u, f, out, omega, offsets, values,
-                                              n_entries, inv_diag, rows, cols);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (radius) {
+    case 1:
+      err = launch_radius<1>(tile_rows, warps, u, f, out, omega, dense, present, inv_diag, rows, cols, stream);
+      break;
+    case 2:
+      err = launch_radius<2>(tile_rows, warps, u, f, out, omega, dense, present, inv_diag, rows, cols, stream);
+      break;
+    case 4:
+      err = launch_radius<4>(tile_rows, warps, u, f, out, omega, dense, present, inv_diag, rows, cols, stream);
+      break;
+    default:
+      break;
+  }
+  return static_cast<int>(err);
 }

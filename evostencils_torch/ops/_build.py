@@ -80,8 +80,11 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(target))
         # Every pointer and the stream as c_void_p: ctypes would pass a bare
         # Python int as a 32-bit int and cut the pointer.
-        lib.rb_sweep_f32.argtypes = [ctypes.c_void_p] * 6 + [
-            ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        # The stencil's coefficients and presence bits are host arrays.
+        lib.rb_sweep_f32.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint32),
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.rb_sweep_f32.restype = ctypes.c_int
         _library = lib

@@ -14,8 +14,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from evostencils_tpu.stencils import periodic
 from evostencils_torch import numpy_dtype
+from evostencils_torch.stencils import periodic
 
 
 def assemble_scalar_matrix(stencil, interior_shape: Tuple[int, ...]) -> np.ndarray:

@@ -18,8 +18,8 @@ from typing import Tuple
 
 import torch
 
-from evostencils_tpu.stencils import constant
 from evostencils_torch.ops.stencil_ops import apply_constant_stencil, pad_zeros, scalar
+from evostencils_torch.stencils import constant
 
 
 def restrict(

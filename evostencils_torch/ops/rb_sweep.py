@@ -11,24 +11,27 @@ tensors it launches the kernel or raises.
 from __future__ import annotations
 
 import collections
+import ctypes
+import functools
 
 import torch
 
-from evostencils_tpu.stencils import constant
 from evostencils_torch import CudaKernelError
 from evostencils_torch.ops import _build
 from evostencils_torch.ops.stencil_ops import apply_constant_stencil, red_black_masks
+from evostencils_torch.stencils import constant
 
-# Largest stencil radius the kernel's shared-memory halo covers
-# (MAX_RADIUS in csrc/rb_sweep.cu); the TPU's row-blocked kernel had the
-# same limit.
+# Largest stencil radius the kernel takes; the TPU's row-blocked kernel had
+# the same limit.
 MAX_RADIUS = 4
+# The halo radii csrc/rb_sweep.cu is instantiated for.
+TEMPLATE_RADII = (1, 2, 4)
+# Side of the dense coefficient grid the kernel's C entry point reads.
+_SIDE = 2 * MAX_RADIUS + 1
 
 # Kernel launches by grid shape (rows, cols) since the last clear():
 # counted where the kernel launches, nowhere else.
 launches = collections.Counter()
-
-_device_stencils = {}
 
 
 def _stencil_radius(entries) -> int:
@@ -47,6 +50,26 @@ def supports_rb_sweep(shape, stencil, dtype) -> bool:
     )
 
 
+def template_radius(radius: int) -> int:
+    """The smallest radius the kernel is instantiated for that covers a
+    stencil of this radius."""
+    for candidate in TEMPLATE_RADII:
+        if radius <= candidate:
+            return candidate
+    raise ValueError(f"red-black sweep: radius {radius} exceeds {MAX_RADIUS}")
+
+
+def launch_config(shape) -> tuple:
+    """(tile_rows, warps) of the kernel's thread blocks for a grid shape:
+    the fastest of the instantiated shapes at each level on an H100
+    (scripts/torch_rb_sweep_levels.py --configs).  Up to 256² cells, 8-row
+    tiles of 8 warps: many short blocks for few points.  Above, 12-row
+    tiles of 4 warps: fewer halo rows re-read per output row."""
+    if shape[0] * shape[1] <= 256 * 256:
+        return 8, 8
+    return 12, 4
+
+
 def rb_sweep_reference(u, f, omega, stencil: constant.Stencil) -> torch.Tensor:
     """Plain torch version: two masked half-sweeps, the residual recomputed
     from the post-red values for black, w = ω·(1/centre) rounded as the
@@ -60,19 +83,32 @@ def rb_sweep_reference(u, f, omega, stencil: constant.Stencil) -> torch.Tensor:
     return u
 
 
-def _device_stencil(stencil: constant.Stencil, device):
-    key = (stencil.entries, str(device))
-    tensors = _device_stencils.get(key)
-    if tensors is None:
-        offsets = torch.tensor(
-            [o for offset, _ in stencil.entries for o in offset], dtype=torch.int32
-        ).to(device)
-        values = torch.tensor(
-            [float(v) for _, v in stencil.entries], dtype=torch.float32
-        ).to(device)
-        tensors = (offsets, values)
-        _device_stencils[key] = tensors
-    return tensors
+@functools.lru_cache(maxsize=None)
+def _kernel_stencil(stencil: constant.Stencil):
+    """(template radius, dense coefficients, presence bits, 1/centre) as the
+    C entry point takes them, built once per stencil."""
+    dense = (ctypes.c_float * (_SIDE * _SIDE))()
+    present = (ctypes.c_uint32 * 3)()
+    for (di, dj), value in stencil.entries:
+        k = (di + MAX_RADIUS) * _SIDE + (dj + MAX_RADIUS)
+        dense[k] = float(value)
+        present[k // 32] |= 1 << (k % 32)
+    return (template_radius(_stencil_radius(stencil.entries)), dense, present,
+            float(1.0 / stencil.center_value()))
+
+
+@functools.lru_cache(maxsize=256)
+def _cached_omega(value: float, device: str) -> torch.Tensor:
+    return torch.full((1,), value, dtype=torch.float32, device=device)
+
+
+def _device_omega(omega, device) -> torch.Tensor:
+    """ω as a one-element float32 tensor on `device`; a float ω reuses one
+    cached tensor per (value, device), so it launches no fill kernel per
+    sweep."""
+    if torch.is_tensor(omega):
+        return omega.to(device=device, dtype=torch.float32).reshape(1)
+    return _cached_omega(float(omega), str(device))
 
 
 def red_black_collective_jacobi_sweep(u, f, omega, stencil: constant.Stencil) -> torch.Tensor:
@@ -89,17 +125,14 @@ def red_black_collective_jacobi_sweep(u, f, omega, stencil: constant.Stencil) ->
         raise ValueError("red-black sweep: u and f differ in shape, dtype or device")
     u = u.contiguous()
     f = f.contiguous()
-    if torch.is_tensor(omega):
-        omega_arg = omega.to(device=u.device, dtype=torch.float32).reshape(1)
-    else:
-        omega_arg = torch.full((1,), float(omega), dtype=torch.float32, device=u.device)
-    offsets, values = _device_stencil(stencil, u.device)
+    omega_arg = _device_omega(omega, u.device)
+    radius, dense, present, inv_diag = _kernel_stencil(stencil)
+    tile_rows, warps = launch_config(u.shape)
     out = torch.empty_like(u)
     lib = _build.library()
     err = lib.rb_sweep_f32(
         u.data_ptr(), f.data_ptr(), out.data_ptr(), omega_arg.data_ptr(),
-        offsets.data_ptr(), values.data_ptr(), stencil.number_of_entries,
-        float(1.0 / stencil.center_value()), u.shape[0], u.shape[1],
+        dense, present, radius, tile_rows, warps, inv_diag, u.shape[0], u.shape[1],
         torch.cuda.current_stream(u.device).cuda_stream,
     )
     if err != 0:

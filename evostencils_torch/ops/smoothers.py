@@ -20,9 +20,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from evostencils_tpu.stencils import periodic
 from evostencils_torch import numpy_dtype
 from evostencils_torch.ops.stencil_ops import scalar
+from evostencils_torch.stencils import periodic
 
 
 def decoupled_jacobi_apply(r_fields: Sequence[torch.Tensor], inv_diags) -> Tuple[torch.Tensor, ...]:

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from evostencils_tpu.stencils import constant, periodic
+from evostencils_torch.stencils import constant, periodic
 
 
 def scalar(value):

@@ -1,8 +1,9 @@
 """Problem specification API (counterpart of evostencils_tpu/problems/api.py).
 
 Same construction as the reference — sympy equations over named operators
-with stencil generators — building the same `evostencils_tpu.ir` and
-grammar objects, so grammar trees and canonical strings are shared.  Only
+with stencil generators — building the port's own copy of the reference's
+IR and grammar (`evostencils_torch.ir`, `evostencils_torch.grammar`), so a
+grammar tree string and its canonical string mean the same on both.  Only
 the array side differs: dtypes are torch (or numpy) dtypes, and states come
 back as numpy arrays (``device=None``) or as torch tensors on ``device``.
 """
@@ -15,9 +16,9 @@ import numpy as np
 import sympy
 import torch
 
-from evostencils_tpu.grammar import multigrid as mg
-from evostencils_tpu.ir import base, system
 from evostencils_torch import numpy_dtype
+from evostencils_torch.grammar import multigrid as mg
+from evostencils_torch.ir import base, system
 
 
 def make_grid(level: int, dimension: int) -> base.Grid:

@@ -13,9 +13,9 @@ import math
 import numpy as np
 import torch
 
-from evostencils_tpu.ir import base
-from evostencils_tpu.stencils import gallery
+from evostencils_torch.ir import base
 from evostencils_torch.problems.api import Problem
+from evostencils_torch.stencils import gallery
 
 
 def _rhs_sines(*coords):

@@ -11,12 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from evostencils_tpu.grammar.multigrid import generate_primitive_set
-from evostencils_tpu.ir import reference_cycles
-from evostencils_tpu.stencils import constant
 from evostencils_torch.backend.lowering import CycleLowering
+from evostencils_torch.grammar.multigrid import generate_primitive_set
+from evostencils_torch.ir import reference_cycles
 from evostencils_torch.ops import rb_sweep
 from evostencils_torch.problems.poisson import poisson_2d
+from evostencils_torch.stencils import constant
 
 ENTRIES = {
     "5-point": (((0, 0), 4.0), ((1, 0), -1.0), ((-1, 0), -1.0), ((0, 1), -1.0), ((0, -1), -1.0)),
@@ -24,6 +24,10 @@ ENTRIES = {
     "9-point": (((0, 0), 8.0 / 3), ((1, 0), -1 / 3), ((-1, 0), -1 / 3), ((0, 1), -1 / 3),
                 ((0, -1), -1 / 3), ((1, 1), -1 / 3), ((1, -1), -1 / 3), ((-1, 1), -1 / 3),
                 ((-1, -1), -1 / 3)),
+    # Radius 1, neither the 5-point nor the 9-point pattern: the kernel's
+    # generic radius-1 instance.
+    "skew": (((0, 0), 2.0), ((1, 1), -0.5), ((-1, 0), -0.25), ((0, -1), -0.25)),
+    "radius-2": (((0, 0), 2.5), ((2, -1), -0.5), ((-2, 1), 0.75), ((0, 2), -0.25), ((1, 0), -0.5)),
     # No symmetry, radius 4: a sign or axis error in the offsets shows up here.
     "asymmetric": (((0, 0), 4.0), ((1, 0), -1.5), ((-1, 0), -0.5), ((0, 1), -0.75),
                    ((0, -2), -0.25), ((2, -1), 0.125), ((-4, 3), -0.0625), ((3, 4), 0.1)),
@@ -42,9 +46,10 @@ def cuda():
 @pytest.mark.parametrize(
     "shape", [(31, 31), (63, 63), (127, 127), (255, 255), (511, 511), (1023, 1023), (161, 96)])
 def test_kernel_matches_plain_version(cuda, name, shape):
-    # Every level size of the 511² and 1023² configurations (31² lies inside
-    # one tile) and a ragged grid; max|Δ| < 5e-5, as tests/test_pallas.py
-    # holds the Pallas kernels.
+    # Every level size of the 511² and 1023² configurations (both block
+    # shapes of ops/rb_sweep.py: launch_config) and a ragged grid, with a
+    # stencil for every instance of the kernel; max|Δ| < 5e-5, as
+    # tests/test_pallas.py holds the Pallas kernels.
     stencil = constant.Stencil(ENTRIES[name])
     rng = np.random.default_rng(3)
     u, f = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)

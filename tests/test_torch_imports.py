@@ -1,9 +1,12 @@
-"""The port and chip_smoke.py import without JAX.
+"""The port and chip_smoke.py import without JAX and without the JAX package.
 
-The machine with the GPU has no JAX, so this is what breaks first there.
-A fresh interpreter refuses every `jax`/`jaxlib` import, imports the port's
-modules and chip_smoke (without running its main), and must end with no
-jax module loaded.
+The machine with the GPU has no JAX, so this is what breaks first there;
+and the port keeps its own copies of the reference's array-free layers,
+so it must not reach into `evostencils_tpu` either, not even lazily.  A
+fresh interpreter refuses every `jax`/`jaxlib`/`evostencils_tpu` import,
+imports the port's modules and chip_smoke (without running its main),
+builds a grammar and compiles a tree through the port (which runs the
+lazy imports inside the IR), and must end with none of them loaded.
 """
 
 import os
@@ -14,6 +17,24 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 MODULES = [
     "evostencils_torch",
+    "evostencils_torch.stencils",
+    "evostencils_torch.stencils.constant",
+    "evostencils_torch.stencils.periodic",
+    "evostencils_torch.stencils.gallery",
+    "evostencils_torch.ir",
+    "evostencils_torch.ir.base",
+    "evostencils_torch.ir.system",
+    "evostencils_torch.ir.krylov",
+    "evostencils_torch.ir.smoother",
+    "evostencils_torch.ir.partitioning",
+    "evostencils_torch.ir.transformations",
+    "evostencils_torch.ir.reference_cycles",
+    "evostencils_torch.grammar",
+    "evostencils_torch.grammar.typing",
+    "evostencils_torch.grammar.gp",
+    "evostencils_torch.grammar.multigrid",
+    "evostencils_torch.utils",
+    "evostencils_torch.utils.champions",
     "evostencils_torch.problems",
     "evostencils_torch.problems.api",
     "evostencils_torch.problems.poisson",
@@ -30,25 +51,48 @@ MODULES = [
     "chip_smoke",
 ]
 
-PROGRAM = f"""
-import importlib, importlib.abc, sys
+REFUSED = ("jax", "jaxlib", "evostencils_tpu")
 
-class RefuseJax(importlib.abc.MetaPathFinder):
+PROGRAM = f"""
+import importlib, importlib.abc, random, sys
+
+class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError(f"{{name}} is refused: the port must not import JAX")
+        if name.split(".")[0] in {REFUSED!r}:
+            raise ImportError(f"{{name}} is refused: the port must not import it")
         return None
 
-sys.meta_path.insert(0, RefuseJax())
+sys.meta_path.insert(0, Refuse())
 for module in {MODULES!r}:
     importlib.import_module(module)
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+
+import torch
+from evostencils_torch.backend.evaluation import TorchProgramGenerator
+from evostencils_torch.grammar import gp
+from evostencils_torch.grammar.multigrid import generate_primitive_set
+from evostencils_torch.ir import reference_cycles, transformations
+from evostencils_torch.problems.poisson import poisson_2d
+from evostencils_torch.utils.champions import apply_stored_omegas, parse_champion_file
+
+problem = poisson_2d(3, 5, dtype=torch.float64)
+pset, terminals = generate_primitive_set(
+    problem.approximation(), problem.rhs(), problem.dimension, problem.coarsening_factors,
+    problem.max_level, problem.equations, problem.operators, problem.fields,
+    depth=2, maximum_local_system_size=4)
+tree = gp.gen_grow(pset, 2, 8, rng=random.Random(1))
+expr = gp.compile_tree(tree, pset)[0]
+transformations.canonical_string(expr)
+cycle = reference_cycles.generate_v_22_cycle_two_grid(terminals[0], problem.rhs())
+TorchProgramGenerator(problem, dtype=torch.float64, device="cpu").generate_and_evaluate(
+    cycle, evaluation_samples=1)
+apply_stored_omegas(cycle, [1.0, 1.0, 1.0, 1.0], label="import test")
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in {REFUSED!r})
 assert not loaded, loaded
-print("imported", len({MODULES!r}), "modules without jax")
+print("imported", len({MODULES!r}), "modules without jax or evostencils_tpu")
 """
 
 
-def test_port_and_chip_smoke_import_without_jax():
+def test_port_and_chip_smoke_import_without_jax_or_the_jax_package():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(filter(None, [ROOT, env.get("PYTHONPATH")]))
     proc = subprocess.run(
@@ -56,4 +100,4 @@ def test_port_and_chip_smoke_import_without_jax():
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "without jax" in proc.stdout
+    assert "without jax or evostencils_tpu" in proc.stdout

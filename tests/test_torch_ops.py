@@ -1,12 +1,16 @@
 """Parity of the torch ops (evostencils_torch/ops) with the JAX reference
 (evostencils_tpu/ops) on the CPU, at 15² and 31².
 
-Inputs are made from a seed with numpy and fed to both packages.  Every
+Inputs are made from a seed with numpy and fed to both packages; each
+package's ops get stencils built by that package's own stencil modules
+(the port keeps its own copy of them).  Every
 dtype is explicit: tests/conftest.py enables JAX's x64 mode, so JAX
 inputs are built with `jnp.asarray(x, dtype=jnp.float32)`.  float32
 tolerances: atol 1e-6 for a stencil sum of order-one values (a few ulp),
 rel 1e-5 for the dense and block solves, whose summation order differs.
 """
+
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,57 +24,70 @@ from evostencils_tpu.ops import smoothers as jsm
 from evostencils_tpu.ops import stencil_ops as jso
 from evostencils_tpu.stencils import constant, gallery, periodic
 from evostencils_torch import interop
+from evostencils_torch.ir import base as port_base
 from evostencils_torch.ops import coarse_solve, intergrid, smoothers, stencil_ops
+from evostencils_torch.stencils import constant as port_constant
+from evostencils_torch.stencils import gallery as port_gallery
+from evostencils_torch.stencils import periodic as port_periodic
 
 FINE = [(15, 15), (31, 31)]
+REFERENCE = SimpleNamespace(base=base, constant=constant, gallery=gallery, periodic=periodic)
+PORT = SimpleNamespace(
+    base=port_base, constant=port_constant, gallery=port_gallery, periodic=port_periodic)
 
 
-def _grid(n):
-    return base.Grid((n + 1, n + 1), (1.0 / (n + 1),) * 2, int(np.log2(n + 1)))
+def _grid(n, side=REFERENCE):
+    return side.base.Grid((n + 1, n + 1), (1.0 / (n + 1),) * 2, int(np.log2(n + 1)))
 
 
 def _f32(x):
     return jnp.asarray(x, dtype=jnp.float32), torch.from_numpy(np.asarray(x, np.float32))
 
 
-def _stencils(n):
+def _stencils(n, side):
     return {
-        "poisson": gallery.Poisson2D().generate_stencil(_grid(n)),
-        "nine_point": constant.Stencil(
+        "poisson": side.gallery.Poisson2D().generate_stencil(_grid(n, side)),
+        "nine_point": side.constant.Stencil(
             [((i, j), -1.0 if (i, j) != (0, 0) else 8.0) for i in (-1, 0, 1) for j in (-1, 0, 1)]
         ),
-        "reach_two": constant.Stencil([((0, 0), 2.5), ((2, -1), -0.5), ((-2, 1), 0.75)]),
+        "reach_two": side.constant.Stencil([((0, 0), 2.5), ((2, -1), -0.5), ((-2, 1), 0.75)]),
     }
 
 
 @pytest.mark.parametrize("shape", FINE)
 @pytest.mark.parametrize("name", ["poisson", "nine_point", "reach_two"])
 def test_apply_constant_stencil_matches_reference(shape, name):
-    stencil = _stencils(shape[0])[name]
+    stencil, port_stencil = (_stencils(shape[0], side)[name] for side in (REFERENCE, PORT))
+    assert port_stencil.entries == stencil.entries
     x = np.random.default_rng(0).standard_normal(shape)
     xj, xt = _f32(x)
     expected = np.asarray(jso.apply_constant_stencil(xj, stencil))
-    got = stencil_ops.apply_constant_stencil(xt, stencil)
+    got = stencil_ops.apply_constant_stencil(xt, port_stencil)
     assert got.dtype == torch.float32
     scale = max(1.0, float(np.abs(expected).max()))
     np.testing.assert_allclose(got.numpy() / scale, expected / scale, atol=1e-6)
     # The numpy oracle, in float64.
     np.testing.assert_allclose(
-        stencil_ops.numpy_apply_constant_stencil(x, stencil),
+        stencil_ops.numpy_apply_constant_stencil(x, port_stencil),
         jso.numpy_apply_constant_stencil(x, stencil), rtol=1e-15, atol=1e-12,
     )
 
 
 def test_periodic_stencil_and_masks_match_reference():
     shape = (15, 15)
-    cells = np.empty((2, 2), dtype=object)
-    for index in np.ndindex(2, 2):
-        cells[index] = constant.Stencil([((0, 0), 4.0 + sum(index)), ((1, 0), -1.0 - index[0])])
-    stencil = periodic.PeriodicStencil(cells)
+
+    def periodic_stencil(side):
+        cells = np.empty((2, 2), dtype=object)
+        for index in np.ndindex(2, 2):
+            cells[index] = side.constant.Stencil(
+                [((0, 0), 4.0 + sum(index)), ((1, 0), -1.0 - index[0])])
+        return side.periodic.PeriodicStencil(cells)
+
+    stencil = periodic_stencil(REFERENCE)
     x = np.random.default_rng(1).standard_normal(shape)
     xj, xt = _f32(x)
     np.testing.assert_allclose(
-        stencil_ops.apply_stencil(xt, stencil).numpy(),
+        stencil_ops.apply_stencil(xt, periodic_stencil(PORT)).numpy(),
         np.asarray(jso.apply_stencil(xj, stencil)), atol=1e-6,
     )
     red_j, black_j = jso.red_black_masks(shape, dtype=jnp.float32)
@@ -89,27 +106,24 @@ def test_periodic_stencil_and_masks_match_reference():
 def test_restrict_and_prolong_match_reference(fine):
     coarse = ((fine[0] - 1) // 2,) * 2
     rng = np.random.default_rng(3)
-    r_stencil = gallery.full_weighting_restriction_stencil(2)
-    p_stencil = gallery.multilinear_interpolation_stencil(2)
     (fj, ft), (cj, ct) = _f32(rng.standard_normal(fine)), _f32(rng.standard_normal(coarse))
-    np.testing.assert_allclose(
-        intergrid.restrict(ft, r_stencil, coarse, (2, 2)).numpy(),
-        np.asarray(jig.restrict(fj, r_stencil, coarse, (2, 2))), atol=1e-6,
-    )
-    np.testing.assert_allclose(
-        intergrid.prolong(ct, p_stencil, fine, (2, 2)).numpy(),
-        np.asarray(jig.prolong(cj, p_stencil, fine, (2, 2))), atol=1e-6,
-    )
-    # A non-separable transfer takes the reference's conv tier.
-    skew = constant.Stencil([((0, 0), 0.5), ((1, 1), 0.25), ((-1, 0), 0.125), ((0, -1), 0.125)])
-    np.testing.assert_allclose(
-        intergrid.restrict(ft, skew, coarse, (2, 2)).numpy(),
-        np.asarray(jig.restrict(fj, skew, coarse, (2, 2))), atol=1e-6,
-    )
-    np.testing.assert_allclose(
-        intergrid.prolong(ct, skew, fine, (2, 2)).numpy(),
-        np.asarray(jig.prolong(cj, skew, fine, (2, 2))), atol=1e-6,
-    )
+    skew = [((0, 0), 0.5), ((1, 1), 0.25), ((-1, 0), 0.125), ((0, -1), 0.125)]
+    ref, port = ({
+        "restriction": side.gallery.full_weighting_restriction_stencil(2),
+        "prolongation": side.gallery.multilinear_interpolation_stencil(2),
+        # A non-separable transfer takes the reference's conv tier.
+        "skew": side.constant.Stencil(skew),
+    } for side in (REFERENCE, PORT))
+    for restriction, prolongation in (("restriction", "prolongation"), ("skew", "skew")):
+        assert port[restriction].entries == ref[restriction].entries
+        np.testing.assert_allclose(
+            intergrid.restrict(ft, port[restriction], coarse, (2, 2)).numpy(),
+            np.asarray(jig.restrict(fj, ref[restriction], coarse, (2, 2))), atol=1e-6,
+        )
+        np.testing.assert_allclose(
+            intergrid.prolong(ct, port[prolongation], fine, (2, 2)).numpy(),
+            np.asarray(jig.prolong(cj, ref[prolongation], fine, (2, 2))), atol=1e-6,
+        )
 
 
 def test_restrict_prolong_adjointness():
@@ -118,23 +132,26 @@ def test_restrict_prolong_adjointness():
     fine_shape, coarse_shape = (15, 15), (7, 7)
     uf = torch.from_numpy(rng.standard_normal(fine_shape))
     uc = torch.from_numpy(rng.standard_normal(coarse_shape))
-    Puc = intergrid.prolong(uc, gallery.multilinear_interpolation_stencil(2), fine_shape, (2, 2))
-    Ruf = intergrid.restrict(uf, gallery.full_weighting_restriction_stencil(2), coarse_shape, (2, 2))
+    Puc = intergrid.prolong(
+        uc, port_gallery.multilinear_interpolation_stencil(2), fine_shape, (2, 2))
+    Ruf = intergrid.restrict(
+        uf, port_gallery.full_weighting_restriction_stencil(2), coarse_shape, (2, 2))
     assert abs(float(torch.sum(Puc * uf)) - 4.0 * float(torch.sum(uc * Ruf))) < 1e-9
 
 
 def test_prolong_of_constant_interior():
     # Bilinear interpolation reproduces constants away from the boundary.
     uc = torch.ones((7, 7), dtype=torch.float64)
-    out = intergrid.prolong(uc, gallery.multilinear_interpolation_stencil(2), (15, 15), (2, 2))
+    out = intergrid.prolong(uc, port_gallery.multilinear_interpolation_stencil(2), (15, 15), (2, 2))
     np.testing.assert_allclose(out.numpy()[2:-2, 2:-2], 1.0, atol=1e-12)
 
 
 def test_dense_solve_matches_reference_with_its_own_inverse():
     shape = (15, 15)
     stencil = gallery.Poisson2D().generate_stencil(_grid(15))
+    port_stencil = port_gallery.Poisson2D().generate_stencil(_grid(15, PORT))
     np.testing.assert_array_equal(
-        coarse_solve.assemble_scalar_matrix(stencil, shape),
+        coarse_solve.assemble_scalar_matrix(port_stencil, shape),
         jcs.assemble_scalar_matrix(stencil, shape),
     )
     matrix = jcs.assemble_scalar_matrix(stencil, shape)
@@ -151,19 +168,24 @@ def test_dense_solve_matches_reference_with_its_own_inverse():
 @pytest.mark.parametrize("period", [(2, 2), (3, 1), (2, 3)])
 def test_block_solve_paths_match_reference(period):
     shape = (15, 15)
-    stencil = gallery.Poisson2D().generate_stencil(_grid(15))
-    # Keep only couplings inside one block, as the grammar's block-diagonal
-    # filter does, as a periodic stencil over the block.
-    cells = np.empty(period, dtype=object)
-    for alpha in np.ndindex(*period):
-        cells[alpha] = constant.Stencil([
-            (o, v) for o, v in stencil.entries
-            if all(0 <= a + oo < p for a, oo, p in zip(alpha, o, period))
-        ])
-    block = periodic.PeriodicStencil(cells)
-    spec_j = jsm.build_block_solve_spec([[block]], [period], shape, jnp.float32)
+
+    def block_stencil(side):
+        # Keep only couplings inside one block, as the grammar's
+        # block-diagonal filter does, as a periodic stencil over the block.
+        stencil = side.gallery.Poisson2D().generate_stencil(_grid(15, side))
+        cells = np.empty(period, dtype=object)
+        for alpha in np.ndindex(*period):
+            cells[alpha] = side.constant.Stencil([
+                (o, v) for o, v in stencil.entries
+                if all(0 <= a + oo < p for a, oo, p in zip(alpha, o, period))
+            ])
+        return side.periodic.PeriodicStencil(cells)
+
+    spec_j = jsm.build_block_solve_spec(
+        [[block_stencil(REFERENCE)]], [period], shape, jnp.float32)
     spec_t = interop.block_solve_spec_from_reference(spec_j, "cpu", torch.float32)
-    own = smoothers.build_block_solve_spec([[block]], [period], shape, torch.float32, "cpu")
+    own = smoothers.build_block_solve_spec(
+        [[block_stencil(PORT)]], [period], shape, torch.float32, "cpu")
     np.testing.assert_allclose(own.inv_l, spec_j.inv_l, rtol=1e-6, atol=1e-9)
     rj, rt = _f32(np.random.default_rng(5).standard_normal(shape))
     scale = max(1.0, float(np.abs(np.asarray(rj)).max()) * float(np.abs(spec_j.inv_l).max()))

@@ -8,15 +8,18 @@ tests/test_pallas.py holds the Pallas kernels: two float32 half-sweeps
 whose stencil sums round in another order.
 """
 
+import pathlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from evostencils_tpu.ir.base import Grid
 from evostencils_tpu.ops.pallas_kernels import _rb_blocked_call, _rb_sweep_call
-from evostencils_tpu.stencils import constant, gallery
+from evostencils_torch.ir.base import Grid
 from evostencils_torch.ops import rb_sweep
+from evostencils_torch.stencils import constant, gallery
 
 ENTRIES = {
     "5-point": (((0, 0), 4.0), ((1, 0), -1.0), ((-1, 0), -1.0), ((0, 1), -1.0), ((0, -1), -1.0)),
@@ -87,10 +90,56 @@ def test_gate():
     assert not rb_sweep.supports_rb_sweep((15, 15), helm, torch.float32)
 
 
+def test_template_radius_and_block_shape():
+    # The smallest instantiated halo (R in 1, 2, 4) that covers the stencil.
+    for offset, expected in [((1, 0), 1), ((1, -1), 1), ((0, 2), 2), ((-2, 1), 2),
+                             ((3, 0), 4), ((0, -3), 4), ((4, -4), 4)]:
+        stencil = constant.Stencil([((0, 0), 2.0), (offset, -1.0)])
+        assert rb_sweep.template_radius(rb_sweep._stencil_radius(stencil.entries)) == expected
+        radius, dense, present, inv_diag = rb_sweep._kernel_stencil(stencil)
+        assert radius == expected and inv_diag == 0.5
+        # The dense 9 x 9 coefficient grid and its presence bits, as the
+        # kernel's C entry point reads them.
+        k = (offset[0] + 4) * 9 + (offset[1] + 4)
+        assert dense[k] == -1.0 and dense[40] == 2.0
+        assert [(present[i // 32] >> (i % 32)) & 1 for i in range(81)].count(1) == 2
+        assert (present[k // 32] >> (k % 32)) & 1 and (present[1] >> 8) & 1
+    for stencil in (constant.Stencil(ENTRIES[name]) for name in ENTRIES):
+        assert rb_sweep.supports_rb_sweep((15, 15), stencil, torch.float32)
+    assert rb_sweep._kernel_stencil(constant.Stencil(ENTRIES["5-point"]))[0] == 1
+    assert rb_sweep._kernel_stencil(constant.Stencil(ENTRIES["9-point"]))[0] == 1
+    assert rb_sweep._kernel_stencil(constant.Stencil(ENTRIES["asymmetric"]))[0] == 4
+    # Radius 5 is beyond the kernel: the gate refuses it and no instance covers it.
+    wide = constant.Stencil([((0, 0), 2.0), ((0, -5), -1.0)])
+    assert not rb_sweep.supports_rb_sweep((15, 15), wide, torch.float32)
+    with pytest.raises(ValueError):
+        rb_sweep.template_radius(5)
+    # Every level of the main path gets a block shape the kernel source
+    # instantiates (else the C entry point refuses the launch).
+    source = (pathlib.Path(rb_sweep.__file__).parent.parent / "csrc" / "rb_sweep.cu").read_text()
+    instantiated = {(int(a), int(b)) for a, b in re.findall(r"RB_TILE\((\d+), (\d+)\)\n", source)}
+    assert len(instantiated) >= 2
+    for shape in [(31, 31), (63, 63), (127, 127), (255, 255), (511, 511), (1023, 1023), (161, 96)]:
+        assert rb_sweep.launch_config(shape) in instantiated, shape
+    assert rb_sweep.launch_config((255, 255)) != rb_sweep.launch_config((511, 511))
+
+
+def test_float_omega_reuses_one_device_tensor():
+    # A float ω becomes one cached one-element tensor per (value, device),
+    # so the main path launches no fill kernel per sweep.
+    first = rb_sweep._device_omega(1.15, torch.device("cpu"))
+    assert first.shape == (1,) and first.dtype == torch.float32
+    assert rb_sweep._device_omega(1.15, torch.device("cpu")) is first
+    assert rb_sweep._device_omega(0.8, torch.device("cpu")) is not first
+    assert float(first) == pytest.approx(1.15)
+    # A tensor ω is used as it is given.
+    given = torch.tensor([0.9], dtype=torch.float32)
+    assert rb_sweep._device_omega(given, torch.device("cpu")).data_ptr() == given.data_ptr()
+
 
 def test_lowering_takes_the_sweep_for_float32_red_black_jacobi():
-    from evostencils_tpu.grammar.multigrid import generate_primitive_set
-    from evostencils_tpu.ir import smoother
+    from evostencils_torch.grammar.multigrid import generate_primitive_set
+    from evostencils_torch.ir import smoother
     from evostencils_torch.backend.lowering import CycleLowering
     from evostencils_torch.problems.poisson import poisson_2d
 

@@ -1,7 +1,10 @@
 """The ported fitness-evaluation slice against the JAX reference on the CPU.
 
 Both packages get the same grammar trees (seeded `gp.gen_grow` on 2D
-Poisson, levels 3-5, 31² finest) and the V(2,2) two-grid reference cycle.
+Poisson, levels 3-5, 31² finest) and the V(2,2) two-grid reference cycle,
+each compiled through its own package's grammar and reference cycles: the
+port keeps its own copy of the IR, so its IR objects are not the
+reference's.
 
 * float32 takes the power-iteration path on both sides.  They must agree
   on which individuals get an infinite time, on finite ρ within 1 %
@@ -29,11 +32,13 @@ import torch
 from evostencils_tpu.backend.evaluation import JaxProgramGenerator
 from evostencils_tpu.backend.lowering import CycleLowering as JaxLowering
 from evostencils_tpu.backend.vm import CycleVM as JaxVM
-from evostencils_tpu.grammar import gp
-from evostencils_tpu.grammar.multigrid import generate_primitive_set
-from evostencils_tpu.ir import base, krylov, reference_cycles
+from evostencils_tpu.grammar import gp as jax_gp
+from evostencils_tpu.grammar import multigrid as jax_multigrid
+from evostencils_tpu.ir import reference_cycles as jax_reference_cycles
 from evostencils_tpu.problems.poisson import poisson_2d as jax_poisson_2d
 from evostencils_torch import NotPortedError, interop
+from evostencils_torch.grammar import gp, multigrid
+from evostencils_torch.ir import base, krylov, reference_cycles
 from evostencils_torch.backend.evaluation import TorchProgramGenerator
 from evostencils_torch.backend.lowering import CycleLowering
 from evostencils_torch.backend.vm import CycleVM
@@ -42,8 +47,8 @@ from evostencils_torch.problems.poisson import poisson_2d
 INFINITY = 1e100
 
 
-def _pset(problem):
-    return generate_primitive_set(
+def _pset(problem, grammar):
+    return grammar.generate_primitive_set(
         problem.approximation(), problem.rhs(), problem.dimension,
         problem.coarsening_factors, problem.max_level, problem.equations,
         problem.operators, problem.fields, depth=2, maximum_local_system_size=8,
@@ -51,30 +56,39 @@ def _pset(problem):
 
 
 class Side:
-    """One package's problem and grammar, compiling shared tree strings."""
+    """One package's problem, grammar and reference cycles, compiling
+    shared tree strings."""
 
-    def __init__(self, problem):
+    def __init__(self, problem, gp_module, grammar, cycles):
         self.problem = problem
-        self.pset, self.terminals = _pset(problem)
+        self.gp = gp_module
+        self.cycles = cycles
+        self.pset, self.terminals = _pset(problem, grammar)
 
     def expressions(self, tree_strings):
-        exprs = [gp.compile_tree(gp.parse_tree(s, self.pset), self.pset)[0] for s in tree_strings]
-        exprs.append(reference_cycles.generate_v_22_cycle_two_grid(
+        exprs = [self.gp.compile_tree(self.gp.parse_tree(s, self.pset), self.pset)[0]
+                 for s in tree_strings]
+        exprs.append(self.cycles.generate_v_22_cycle_two_grid(
             self.terminals[0], self.problem.rhs()))
         return exprs
 
 
+def port_side(problem):
+    return Side(problem, gp, multigrid, reference_cycles)
+
+
 @pytest.fixture(scope="module")
 def tree_strings():
-    pset, _ = _pset(poisson_2d(3, 5, dtype=torch.float32))
+    pset, _ = _pset(poisson_2d(3, 5, dtype=torch.float32), multigrid)
     rng = random.Random(5)
     return [str(gp.gen_grow(pset, 2, 16, rng=rng)) for _ in range(4)]
 
 
 def _sides(np_dtype):
     return (
-        Side(jax_poisson_2d(3, 5, dtype=jnp.dtype(np_dtype))),
-        Side(poisson_2d(3, 5, dtype=torch.float32 if np_dtype == np.float32 else torch.float64)),
+        Side(jax_poisson_2d(3, 5, dtype=jnp.dtype(np_dtype)),
+             jax_gp, jax_multigrid, jax_reference_cycles),
+        port_side(poisson_2d(3, 5, dtype=torch.float32 if np_dtype == np.float32 else torch.float64)),
     )
 
 
@@ -140,7 +154,7 @@ def test_one_cycle_matches_reference(tree_strings):
 
 def test_unported_feature_raises_and_is_never_scored_infinity():
     assert not issubclass(NotPortedError, (RuntimeError, ValueError, NotImplementedError))
-    side = Side(poisson_2d(3, 5, dtype=torch.float64))
+    side = port_side(poisson_2d(3, 5, dtype=torch.float64))
     t = side.terminals[0]
     u, f = t.approximation, side.problem.rhs()
     f_c = base.Multiplication(t.restriction, base.Residual(t.operator, u, f))

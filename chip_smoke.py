@@ -21,7 +21,7 @@ JSON line:
    host's launch overhead (`call_ms`).
 3. levels: the kernel's device time on the 5-point stencil at every level
    of the main path (63² to 1023²), L2 warm as the main path finds it
-   (timed as scripts/torch_rb_sweep_levels.py times it), beside the
+   (evostencils_torch/measure.py, as for the kernel phase), beside the
    level's bound (12 bytes a point over 3.35 TB/s) and the
    share of that bound it reaches, and the launch floor: the device time
    of an empty kernel queued the same way.
@@ -58,11 +58,11 @@ import torch
 from evostencils_torch.backend.evaluation import TorchProgramGenerator
 from evostencils_torch.grammar import gp
 from evostencils_torch.grammar.multigrid import generate_primitive_set
+from evostencils_torch.measure import LEVELS, bound_ms, median_device_ms
 from evostencils_torch.ops import _build, rb_sweep
 from evostencils_torch.problems.poisson import poisson_2d
 from evostencils_torch.stencils import constant
 from evostencils_torch.utils.champions import apply_stored_omegas, parse_champion_file
-from scripts.torch_rb_sweep_levels import LEVELS, bound_ms, median_device_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CHAMPION = os.path.join(ROOT, "artifacts", "poisson2d_champion_r2_tuned.txt")

@@ -33,7 +33,8 @@
 // * The stencil is passed by value as a dense (2R+1)² grid of coefficients
 //   and a bit mask of the entries present.  The entry loop unrolls with
 //   compile-time shared-memory offsets; the main path's 5-point stencil
-//   has instances of its own, with no mask test at all.
+//   has instances of its own, with no mask test at all (5-6 % faster than
+//   the mask at every level on an H100, PERF.md).
 // * A block's red region is 32 columns wide, one lane a column while
 //   staging; its output tile is the 32 - 2R columns inside it.  No thread
 //   divides or takes a remainder.  Each stage's loop has a compile-time
@@ -46,10 +47,8 @@
 //   neighbour from it or from old u according to the parity of its offset,
 //   known at compile time.  Blocks recompute their halo's red values, so
 //   no block depends on another, and `out` is never `u`.
-// * Tile height from the grid size (ops/rb_sweep.py: launch_config): the
-//   fastest instantiated shape at each level, timed by
-//   scripts/torch_rb_sweep_levels.py --configs, which also times the
-//   other instantiated shapes.
+// * Tile height from the grid size (launch_shape): two block shapes, each
+//   the fastest of seven timed at its levels.
 // * omega stays a device pointer, for a later CUDA graph.
 // Not done: vector loads and TMA need 16-byte aligned rows, and every level
 // width is 2^k - 1; padding the port's array layout would change every op.
@@ -81,8 +80,8 @@ enum Pattern { GENERIC, STAR };
 
 template <int R, Pattern P>
 __device__ __forceinline__ bool has_entry(const Coefficients<R>& a, int k) {
-  constexpr int SIDE = 2 * R + 1;
   if constexpr (P == STAR) {
+    constexpr int SIDE = 2 * R + 1;
     const int di = k / SIDE - R, dj = k % SIDE - R;
     return di * di + dj * dj <= 1;
   } else {
@@ -232,31 +231,26 @@ cudaError_t launch(const float* u, const float* f, float* out, const float* omeg
   return cudaGetLastError();
 }
 
+// The block shape from the grid size: 8-row tiles of 8 warps up to 256²
+// cells, many short blocks for few points; 12-row tiles of 4 warps above,
+// fewer halo rows re-read per output row.  Each was the fastest of seven
+// shapes timed at every level of the main path on an H100 (PERF.md).
 template <int R, Pattern P>
-cudaError_t launch_tile(int tile_rows, int warps, const float* u, const float* f, float* out,
-                        const float* omega, const Coefficients<R>& a, float inv_diag,
-                        int rows, int cols, cudaStream_t stream) {
-#define RB_TILE(TR, W)                                                                \
-  if (tile_rows == TR && warps == W)                                                  \
-    return launch<R, P, TR, W>(u, f, out, omega, a, inv_diag, rows, cols, stream);
-  RB_TILE(4, 4)
-  RB_TILE(8, 4)
-  RB_TILE(8, 8)
-  RB_TILE(12, 4)
-  RB_TILE(16, 4)
-  RB_TILE(16, 8)
-  RB_TILE(32, 8)
-#undef RB_TILE
-  return cudaErrorInvalidValue;
+cudaError_t launch_shape(const float* u, const float* f, float* out, const float* omega,
+                         const Coefficients<R>& a, float inv_diag, int rows, int cols,
+                         cudaStream_t stream) {
+  if (static_cast<long long>(rows) * cols <= 256 * 256) {
+    return launch<R, P, 8, 8>(u, f, out, omega, a, inv_diag, rows, cols, stream);
+  }
+  return launch<R, P, 12, 4>(u, f, out, omega, a, inv_diag, rows, cols, stream);
 }
 
 // The stencil's coefficients for radius R out of the 9 x 9 host arrays, and
 // the launch with the pattern known at compile time where there is one.
 template <int R>
-cudaError_t launch_radius(int tile_rows, int warps, const float* u, const float* f,
-                          float* out, const float* omega, const float* dense,
-                          const uint32_t* present, float inv_diag, int rows, int cols,
-                          cudaStream_t stream) {
+cudaError_t launch_radius(const float* u, const float* f, float* out, const float* omega,
+                          const float* dense, const uint32_t* present, float inv_diag,
+                          int rows, int cols, cudaStream_t stream) {
   Coefficients<R> a;
   bool star = true;
   for (int k = 0; k < Coefficients<R>::COUNT; ++k) {
@@ -269,9 +263,9 @@ cudaError_t launch_radius(int tile_rows, int warps, const float* u, const float*
     star = star && has == (di * di + dj * dj <= 1);
   }
   if constexpr (R == 1) {
-    if (star) return launch_tile<R, STAR>(tile_rows, warps, u, f, out, omega, a, inv_diag, rows, cols, stream);
+    if (star) return launch_shape<R, STAR>(u, f, out, omega, a, inv_diag, rows, cols, stream);
   }
-  return launch_tile<R, GENERIC>(tile_rows, warps, u, f, out, omega, a, inv_diag, rows, cols, stream);
+  return launch_shape<R, GENERIC>(u, f, out, omega, a, inv_diag, rows, cols, stream);
 }
 
 }  // namespace
@@ -281,14 +275,12 @@ cudaError_t launch_radius(int tile_rows, int warps, const float* u, const float*
 // memory, the stencil's coefficient at row offset di and column offset dj
 // in dense[(di + 4) * 9 + (dj + 4)]; present: 3 words in host memory, bit
 // k % 32 of word k / 32 set where the stencil has the entry k.  radius
-// (1, 2 or 4) must cover every entry; tile_rows and warps pick the block
-// shape.  Launches on `stream` without synchronising and returns
-// cudaGetLastError(), or cudaErrorInvalidValue for arguments it does not
-// take.
+// (1, 2 or 4) must cover every entry.  Launches on `stream` without
+// synchronising and returns cudaGetLastError(), or cudaErrorInvalidValue
+// for arguments it does not take.
 extern "C" int rb_sweep_f32(const float* u, const float* f, float* out, const float* omega,
                             const float* dense, const uint32_t* present, int radius,
-                            int tile_rows, int warps, float inv_diag, int rows, int cols,
-                            cudaStream_t stream) {
+                            float inv_diag, int rows, int cols, cudaStream_t stream) {
   if (rows <= 0 || cols <= 0) return static_cast<int>(cudaErrorInvalidValue);
   for (int m = 0; m < MAX_ENTRIES; ++m) {
     const int di = m / MAX_SIDE - 4, dj = m % MAX_SIDE - 4;
@@ -300,13 +292,13 @@ extern "C" int rb_sweep_f32(const float* u, const float* f, float* out, const fl
   cudaError_t err = cudaErrorInvalidValue;
   switch (radius) {
     case 1:
-      err = launch_radius<1>(tile_rows, warps, u, f, out, omega, dense, present, inv_diag, rows, cols, stream);
+      err = launch_radius<1>(u, f, out, omega, dense, present, inv_diag, rows, cols, stream);
       break;
     case 2:
-      err = launch_radius<2>(tile_rows, warps, u, f, out, omega, dense, present, inv_diag, rows, cols, stream);
+      err = launch_radius<2>(u, f, out, omega, dense, present, inv_diag, rows, cols, stream);
       break;
     case 4:
-      err = launch_radius<4>(tile_rows, warps, u, f, out, omega, dense, present, inv_diag, rows, cols, stream);
+      err = launch_radius<4>(u, f, out, omega, dense, present, inv_diag, rows, cols, stream);
       break;
     default:
       break;

@@ -83,7 +83,7 @@ def library() -> ctypes.CDLL:
         # The stencil's coefficients and presence bits are host arrays.
         lib.rb_sweep_f32.argtypes = [ctypes.c_void_p] * 4 + [
             ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint32),
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.c_int, ctypes.c_float,
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.rb_sweep_f32.restype = ctypes.c_int

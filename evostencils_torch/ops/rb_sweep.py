@@ -59,17 +59,6 @@ def template_radius(radius: int) -> int:
     raise ValueError(f"red-black sweep: radius {radius} exceeds {MAX_RADIUS}")
 
 
-def launch_config(shape) -> tuple:
-    """(tile_rows, warps) of the kernel's thread blocks for a grid shape:
-    the fastest of the instantiated shapes at each level on an H100
-    (scripts/torch_rb_sweep_levels.py --configs).  Up to 256² cells, 8-row
-    tiles of 8 warps: many short blocks for few points.  Above, 12-row
-    tiles of 4 warps: fewer halo rows re-read per output row."""
-    if shape[0] * shape[1] <= 256 * 256:
-        return 8, 8
-    return 12, 4
-
-
 def rb_sweep_reference(u, f, omega, stencil: constant.Stencil) -> torch.Tensor:
     """Plain torch version: two masked half-sweeps, the residual recomputed
     from the post-red values for black, w = ω·(1/centre) rounded as the
@@ -127,12 +116,11 @@ def red_black_collective_jacobi_sweep(u, f, omega, stencil: constant.Stencil) ->
     f = f.contiguous()
     omega_arg = _device_omega(omega, u.device)
     radius, dense, present, inv_diag = _kernel_stencil(stencil)
-    tile_rows, warps = launch_config(u.shape)
     out = torch.empty_like(u)
     lib = _build.library()
     err = lib.rb_sweep_f32(
         u.data_ptr(), f.data_ptr(), out.data_ptr(), omega_arg.data_ptr(),
-        dense, present, radius, tile_rows, warps, inv_diag, u.shape[0], u.shape[1],
+        dense, present, radius, inv_diag, u.shape[0], u.shape[1],
         torch.cuda.current_stream(u.device).cuda_stream,
     )
     if err != 0:

@@ -1,22 +1,19 @@
 """Time the port's red-black sweep kernel level by level on one GPU.
 
     python3 scripts/torch_rb_sweep_levels.py                 # this checkout
-    python3 scripts/torch_rb_sweep_levels.py --configs       # every block shape
     python3 scripts/torch_rb_sweep_levels.py --ab OTHER_ROOT # OTHER, this, this, OTHER
 
 Default: the 5-point stencil at every level of the main path (63² to
-1023²), device time as chip_smoke.py measures it (50 calls queued back to
-back behind a spin kernel, median of 5), L2 warm as the main path finds
-it, beside the level's bound (12 bytes a point over 3.35 TB/s).
-
---configs: every (tile_rows, warps) block shape the kernel is instantiated
-for, at every level, each checked against the plain version (max|Δ| <
-5e-5) before it is timed; the shape the wrapper picks is marked.
+1023²), device time as chip_smoke.py measures it (evostencils_torch/
+measure.py: 50 calls queued back to back behind a spin kernel, median of
+5), L2 warm as the main path finds it, beside the level's bound (12 bytes
+a point over 3.35 TB/s).
 
 --ab OTHER_ROOT: the default timing for another checkout of the port (for
 example the parent commit, unpacked with `git archive`) and for this one,
 in turns OTHER, this, this, OTHER, each in its own process on the same
-card, so the two kernels compare inside one run.
+card, so the two kernels compare inside one run.  Both are timed by this
+checkout's measure.py.
 
 Each result is one JSON line; the last line holds them all.  Needs a CUDA
 card and nvcc; builds each checkout's kernels at first use.
@@ -25,6 +22,7 @@ card and nvcc; builds each checkout's kernels at first use.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import subprocess
@@ -35,108 +33,40 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
-LEVELS = [(63, 63), (127, 127), (255, 255), (511, 511), (1023, 1023)]
-# The H100 SXM's device-memory rate (NVIDIA's data sheet), in bytes/ms, and
-# the kernel's least traffic: read u and f, write the result, 4 bytes each.
-# Its arithmetic (2 flops an entry, a colour each point) stays far below
-# 67 TFLOP/s in float32, so bytes bound it.
-HBM_BYTES_PER_MS = 3.35e12 / 1e3
-BYTES_PER_POINT = 12
 OMEGA = 1.15
 FIVE_POINT = (((0, 0), 4.0), ((1, 0), -1.0), ((-1, 0), -1.0), ((0, 1), -1.0), ((0, -1), -1.0))
-CONFIGS = [(4, 4), (8, 4), (8, 8), (12, 4), (16, 4), (16, 8), (32, 8)]
-TOLERANCE = 5e-5
 
 
-def bound_ms(shape) -> float:
-    """Least time the card could take for one sweep of this shape."""
-    return BYTES_PER_POINT * shape[0] * shape[1] / HBM_BYTES_PER_MS
-
-
-def median_device_ms(fn, calls: int = 50, repeats: int = 5) -> float:
-    """Median device time of one fn() call: `calls` calls back to back
-    between two CUDA events, queued behind a spin kernel so that the host
-    enqueues them all before the first runs and its launch overhead stays
-    out of the span."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(100_000_000)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return float(np.median(times))
-
-
-def _inputs(shape, seed):
-    rng = np.random.default_rng(seed)
-    return tuple(torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()
-                 for _ in range(2))
+def _this_checkouts_measure():
+    """evostencils_torch/measure.py of this checkout, loaded by its path so
+    that the package imported after it may come from another checkout."""
+    spec = importlib.util.spec_from_file_location(
+        "_rb_sweep_levels_measure", os.path.join(ROOT, "evostencils_torch", "measure.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def time_levels(root: str) -> list:
     """The wrapper of the checkout at `root`, level by level."""
+    measure = _this_checkouts_measure()
     sys.path.insert(0, root)
     from evostencils_torch.ops import rb_sweep
 
     stencil = rb_sweep.constant.Stencil(FIVE_POINT)
     omega = torch.full((1,), OMEGA, dtype=torch.float32, device="cuda")
+    rng = np.random.default_rng(4)
     levels = []
-    for shape in LEVELS:
-        u, f = _inputs(shape, 4)
-        ms = median_device_ms(
+    for shape in measure.LEVELS:
+        u, f = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()
+                for _ in range(2))
+        ms = measure.median_device_ms(
             lambda: rb_sweep.red_black_collective_jacobi_sweep(u, f, omega, stencil))
+        bound = measure.bound_ms(shape)
         levels.append({"root": root, "shape": list(shape), "ms": ms,
-                       "bound_ms": bound_ms(shape), "share_of_bound": bound_ms(shape) / ms})
+                       "bound_ms": bound, "share_of_bound": bound / ms})
         print(json.dumps(levels[-1]), flush=True)
     return levels
-
-
-def time_configs() -> list:
-    """Every instantiated block shape of this checkout's kernel."""
-    sys.path.insert(0, ROOT)
-    from evostencils_torch import CudaKernelError
-    from evostencils_torch.ops import _build, rb_sweep
-
-    lib = _build.library()
-    stencil = rb_sweep.constant.Stencil(FIVE_POINT)
-    omega = rb_sweep._device_omega(OMEGA, torch.device("cuda"))
-    radius, dense, present, inv_diag = rb_sweep._kernel_stencil(stencil)
-    stream = torch.cuda.current_stream().cuda_stream
-    results = []
-    for shape in LEVELS:
-        u, f = _inputs(shape, 4)
-        expected = rb_sweep.rb_sweep_reference(u, f, omega, stencil)
-        for tile_rows, warps in CONFIGS:
-            out = torch.empty_like(u)
-
-            def sweep():
-                err = lib.rb_sweep_f32(
-                    u.data_ptr(), f.data_ptr(), out.data_ptr(), omega.data_ptr(), dense,
-                    present, radius, tile_rows, warps, inv_diag, shape[0], shape[1], stream)
-                if err != 0:
-                    raise CudaKernelError(f"rb_sweep_f32: CUDA error {err}")
-
-            sweep()
-            torch.cuda.synchronize()
-            err = float((out - expected).abs().max())
-            if not err < TOLERANCE:
-                raise AssertionError(f"{shape} {tile_rows}x{warps}: max|Δ| {err}")
-            ms = median_device_ms(sweep)
-            results.append({
-                "shape": list(shape), "tile_rows": tile_rows, "warps": warps,
-                "picked": rb_sweep.launch_config(shape) == (tile_rows, warps),
-                "ms": ms, "bound_ms": bound_ms(shape), "share_of_bound": bound_ms(shape) / ms,
-                "max_abs_err": err,
-            })
-            print(json.dumps(results[-1]), flush=True)
-    return results
 
 
 def compare(other: str) -> list:
@@ -157,7 +87,6 @@ def compare(other: str) -> list:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", default=ROOT, help="checkout whose port is timed")
-    parser.add_argument("--configs", action="store_true", help="time every block shape")
     parser.add_argument("--ab", metavar="OTHER_ROOT", help="compare with another checkout")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -167,12 +96,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    if args.configs:
-        results = {"configs": time_configs()}
-    elif args.ab:
-        results = {"levels": compare(args.ab)}
-    else:
-        results = {"levels": time_levels(args.root)}
+    results = {"levels": compare(args.ab) if args.ab else time_levels(args.root)}
     print(smi, flush=True)
     print(json.dumps({"card": smi, **results}), flush=True)
     return 0

@@ -47,7 +47,7 @@ def cuda():
     "shape", [(31, 31), (63, 63), (127, 127), (255, 255), (511, 511), (1023, 1023), (161, 96)])
 def test_kernel_matches_plain_version(cuda, name, shape):
     # Every level size of the 511² and 1023² configurations (both block
-    # shapes of ops/rb_sweep.py: launch_config) and a ragged grid, with a
+    # shapes of csrc/rb_sweep.cu: launch_shape) and a ragged grid, with a
     # stencil for every instance of the kernel; max|Δ| < 5e-5, as
     # tests/test_pallas.py holds the Pallas kernels.
     stencil = constant.Stencil(ENTRIES[name])

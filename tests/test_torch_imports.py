@@ -48,6 +48,7 @@ MODULES = [
     "evostencils_torch.backend.vm",
     "evostencils_torch.backend.evaluation",
     "evostencils_torch.interop",
+    "evostencils_torch.measure",
     "chip_smoke",
 ]
 

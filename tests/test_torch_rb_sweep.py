@@ -114,14 +114,22 @@ def test_template_radius_and_block_shape():
     assert not rb_sweep.supports_rb_sweep((15, 15), wide, torch.float32)
     with pytest.raises(ValueError):
         rb_sweep.template_radius(5)
-    # Every level of the main path gets a block shape the kernel source
-    # instantiates (else the C entry point refuses the launch).
+    # The C entry point picks one of two instantiated block shapes from the
+    # grid size, split at 256² cells: the levels up to 255² take one, 511²
+    # and 1023² the other (tests/test_torch_cuda.py runs both on a card).
     source = (pathlib.Path(rb_sweep.__file__).parent.parent / "csrc" / "rb_sweep.cu").read_text()
-    instantiated = {(int(a), int(b)) for a, b in re.findall(r"RB_TILE\((\d+), (\d+)\)\n", source)}
-    assert len(instantiated) >= 2
-    for shape in [(31, 31), (63, 63), (127, 127), (255, 255), (511, 511), (1023, 1023), (161, 96)]:
-        assert rb_sweep.launch_config(shape) in instantiated, shape
-    assert rb_sweep.launch_config((255, 255)) != rb_sweep.launch_config((511, 511))
+    shapes = re.findall(r"return launch<R, P, (\d+), (\d+)>", source)
+    assert sorted((int(a), int(b)) for a, b in shapes) == [(8, 8), (12, 4)]
+    assert "static_cast<long long>(rows) * cols <= 256 * 256" in source
+
+
+def test_bound_of_a_sweep_is_twelve_bytes_a_point_over_the_memory_rate():
+    from evostencils_torch import measure
+
+    # Read u and f, write the result: 12 bytes a point over 3.35 TB/s.
+    assert measure.bound_ms((511, 511)) == pytest.approx(12 * 511 * 511 / 3.35e9, rel=1e-12)
+    assert measure.bound_ms((1023, 1023)) == pytest.approx(3.7487606e-3, rel=1e-6)
+    assert measure.LEVELS == [(2**k - 1, 2**k - 1) for k in range(6, 11)]
 
 
 def test_float_omega_reuses_one_device_tensor():

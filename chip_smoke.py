@@ -32,7 +32,20 @@ JSON line:
    with the kernel's launch counts by grid size; then the 511² champion
    again on the CPU through the same port, which must agree (ρ within 2 %,
    iterations within ±1).
-5. profile: one more evaluation of the 511² champion under
+5. evolve: the evolution entry point, scripts/torch_optimize.py, in this
+   process on the card: 2D Poisson levels 5-9 (511²) in f32, NSGA-II,
+   μ = λ = 8, initial factor 4, 2 generations, 3 evaluation samples, a
+   fixed seed and --tune, its artifacts under chiprun_out/evolve/.  It
+   reports the evaluations (and how many went through same-structure
+   groups), the wall time and evaluations per hour, the VM hit rate, the
+   best ρ and its iterations, the tuner's ρ before and after, and the
+   kernel's launches by grid size during the run.  Checks: a finite
+   fitness and best ρ < 1; the best-ρ individual re-evaluated gives its
+   recorded ρ within 2 %; `generate_and_evaluate_group` on the champion
+   with 4 ω variants agrees with each member's own evaluation (ρ within
+   2 %, iterations within ±1) with one shared time per iteration; the
+   kernel launched.
+6. profile: one more evaluation of the 511² champion under
    torch.profiler: wall time, device busy time and idle share, device
    operations, the kernel's share; the full table by kernel goes to
    chiprun_out/profile_champion_eval.txt.
@@ -58,11 +71,13 @@ import torch
 from evostencils_torch.backend.evaluation import TorchProgramGenerator
 from evostencils_torch.grammar import gp
 from evostencils_torch.grammar.multigrid import generate_primitive_set
+from evostencils_torch.ir.transformations import collect_cycles
 from evostencils_torch.measure import LEVELS, bound_ms, median_device_ms
 from evostencils_torch.ops import _build, rb_sweep
 from evostencils_torch.problems.poisson import poisson_2d
 from evostencils_torch.stencils import constant
 from evostencils_torch.utils.champions import apply_stored_omegas, parse_champion_file
+from scripts import torch_optimize
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CHAMPION = os.path.join(ROOT, "artifacts", "poisson2d_champion_r2_tuned.txt")
@@ -320,6 +335,97 @@ def phase_main_path(failures: list) -> tuple:
     return launches_by_role, generator, champion
 
 
+EVOLVE_ARGS = [
+    "--problem", "poisson2d", "--method", "nsga2", "--mu", "8", "--lambda", "8",
+    "--generations", "2", "--min-level", "5", "--max-level", "9", "--dtype", "float32",
+    "--evaluation-samples", "3", "--seed", "3", "--tune",
+    "--output", os.path.join(ROOT, "chiprun_out", "evolve"),
+]
+
+
+def champion_variants(pset, n: int) -> list:
+    """The champion with its stored ω and n - 1 seeded perturbations of
+    them inside [0.1, 1.9]: one same-structure group."""
+    stored = parse_champion_file(CHAMPION)[1]
+    rng = np.random.default_rng(13)
+    members = []
+    for i in range(n):
+        champion, _ = load_champion(pset)
+        omegas = stored if i == 0 else np.clip(
+            np.asarray(stored) * rng.uniform(0.85, 1.1, len(stored)), 0.1, 1.9)
+        for cycle, omega in zip(collect_cycles(champion), omegas):
+            cycle.relaxation_factor = float(omega)
+        members.append(champion)
+    return members
+
+
+def phase_evolve(failures: list) -> dict:
+    """Evolution through scripts/torch_optimize.py; returns the kernel's
+    launches by grid shape during the run."""
+    start = time.perf_counter()
+    rb_sweep.launches.clear()
+    result = torch_optimize.run(EVOLVE_ARGS)
+    torch.cuda.synchronize()
+    by_shape = dict(rb_sweep.launches)
+    optimizer, generator = result.optimizer, result.generator
+    evaluations = optimizer._total_number_of_evaluations
+
+    individuals = [ind for hof in result.halls_of_fame for ind in hof]
+    converged = [ind for ind in individuals if ind.fitness_values[1] < optimizer.infinity]
+    best = min(converged, key=lambda ind: ind.fitness_values[0]) if converged else None
+    record = {
+        "phase": "evolve",
+        "args": " ".join(EVOLVE_ARGS[:-2]),
+        "evaluations": evaluations,
+        "group_members": generator.group_members,
+        "groups": generator.groups,
+        "evolution_s": result.evolution_s,
+        "evals_per_hour": evaluations / result.evolution_s * 3600.0,
+        "vm_stats": generator.vm_stats(),
+        "converged_in_hall_of_fame": len(converged),
+    }
+    if best is not None:
+        expr = optimizer.compile_individual(best)[0]
+        _, rho, iterations = generator.generate_and_evaluate(expr, evaluation_samples=3)
+        record["best_rho"] = {"recorded": best.fitness_values[0], "reevaluated": rho,
+                              "iterations": iterations}
+        if not best.fitness_values[0] < 1.0:
+            failures.append(f"evolve: best rho {best.fitness_values[0]} >= 1")
+        if not abs(rho - best.fitness_values[0]) <= 0.02 * best.fitness_values[0]:
+            failures.append(f"evolve: best-rho individual re-evaluated at {rho}, "
+                            f"recorded {best.fitness_values[0]}")
+    else:
+        failures.append("evolve: no individual with a finite fitness")
+    if result.tuning is not None:
+        record["tuning"] = {"rho_before": result.tuning[0], "rho_after": result.tuning[1]}
+    else:
+        failures.append("evolve: --tune did not run")
+
+    # The group path on the champion: 4 ω variants against their own
+    # single evaluations, with one shared time per iteration.
+    members = champion_variants(bench_pset(generator.problem), 4)
+    group = generator.generate_and_evaluate_group(members, evaluation_samples=3)
+    singles = [generator.generate_and_evaluate(e, evaluation_samples=3) for e in members]
+    record["group_check"] = {"group": [list(r) for r in group],
+                             "single": [list(r) for r in singles]}
+    per_iteration = [t / it for t, _, it in group if math.isfinite(t) and t < optimizer.infinity]
+    if len(per_iteration) != len(members) or max(per_iteration) - min(per_iteration) > (
+            1e-9 * max(per_iteration)):
+        failures.append(f"evolve: group times per iteration {per_iteration} are not one shared time")
+    for (_, rho_g, it_g), (_, rho_s, it_s) in zip(group, singles):
+        if not (abs(rho_g - rho_s) <= 0.02 * rho_s and abs(it_g - it_s) <= 1):
+            failures.append(f"evolve: group member rho {rho_g} in {it_g} vs single "
+                            f"{rho_s} in {it_s}")
+    record["rb_sweep_launches"] = sum(by_shape.values())
+    record["rb_sweep_launches_by_shape"] = {
+        f"{r}x{c}": n for (r, c), n in sorted(by_shape.items())}
+    if not by_shape:
+        failures.append("evolve: the kernel never ran")
+    record["phase_s"] = time.perf_counter() - start
+    emit(record)
+    return by_shape
+
+
 def phase_profile(generator, champion) -> None:
     """One evaluation of the champion under torch.profiler; the idle share
     is against the same evaluation's wall time without the profiler."""
@@ -368,6 +474,7 @@ def main() -> int:
     kernel = phase_kernel(failures)
     phase_levels()
     launches_by_role, generator, champion = phase_main_path(failures)
+    evolve_launches = phase_evolve(failures)
     phase_profile(generator, champion)
     if failures:
         for failure in failures:
@@ -379,6 +486,8 @@ def main() -> int:
             "name": f"rb_sweep_f32 ({name})", "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": replaces, "shape": list(timed),
             "launches": launches_by_role[name],
+            "evolve_launches": sum(n for shape, n in evolve_launches.items()
+                                   if role(shape) == name),
             "max_abs_err": max(e for s in CHECKED if role(s) == name
                                for e in kernel[s]["max_abs_err"].values()),
             "ms": kernel[timed]["ms"], "plain_ms": kernel[timed]["plain_ms"],

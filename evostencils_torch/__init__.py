@@ -1,5 +1,5 @@
-"""evostencils_torch — the fitness-evaluation path of evostencils_tpu on
-PyTorch and CUDA.
+"""evostencils_torch — the fitness evaluation and the evolutionary search
+of evostencils_tpu on PyTorch and CUDA.
 
 The JAX package `evostencils_tpu` stays the reference.  This package
 imports nothing of it: it keeps its own copies of the reference's
@@ -9,7 +9,10 @@ a grammar tree string compiles to the same IR on both sides:
     stencils/   constant and periodic stencil algebra, stencil gallery
     ir/         the multigrid expression IR, reference cycles, canonical strings
     grammar/    the typed G3P grammar (gp, multigrid, typing)
-    utils/      champions.py: the stored champions' file format
+    utils/      champions.py: the stored champions' file format;
+                logbook.py: statistics, logbooks, halls of fame
+    optimization/selection.py, intergrid_transfer.py: NSGA-II/III and
+                tournament selection; CMA-ES
 
 and owns every layer that touches arrays:
 
@@ -17,12 +20,16 @@ and owns every layer that touches arrays:
     ops/        stencils, transfers, coarse solve, smoothers, and the
                 hand-written CUDA red-black sweep (csrc/rb_sweep.cu)
     backend/    IR -> eager torch cycle, cycle VM, fitness evaluation
+                (single and same-structure groups)
+    optimization/optimizer.py, relaxation.py: the evolutionary optimizer
+                and the ω tuners (torch.autograd, CMA-ES)
     interop.py  carries the reference's arrays, VM programs and solve
                 specs across to torch
 
-Every entry point takes an explicit `device` and dtype (torch.float32 or
-torch.float64).  TF32 is switched off at import: the reference pins
-full-f32 precision on its transfers for the same reason
+The entry script is scripts/torch_optimize.py.  Every entry point runs on
+the card (`device="cuda"`) unless the caller asks for the CPU, and takes
+torch.float32 or torch.float64.  TF32 is switched off at import: the
+reference pins full-f32 precision on its transfers for the same reason
 (evostencils_tpu/ops/intergrid.py:118-132).
 """
 

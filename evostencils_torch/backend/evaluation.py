@@ -12,11 +12,17 @@ failures.
   * float64: residual-driven stages, restarted from the exact host-f64
     residual when a stage stalls at its floor.
 
-The reference's device loops (`lax.while_loop`) are host loops here: the
-stage reads each cycle's residual norm back to decide whether to go on,
-and decides in the tensor's dtype as the reference does on the device, so
-the executed count and the exit reason match.  Times are CUDA-event spans
-on a GPU and `perf_counter` spans on the CPU.
+`generate_and_evaluate_group` scores same-structure individuals (the
+optimizer's ω-mutation offspring) as the reference's group path does: ρ
+per member, one time per iteration measured on the first survivor and
+shared.
+
+The generator runs on the card unless the caller asks for the CPU
+(`device="cpu"`).  The reference's device loops (`lax.while_loop`) are
+host loops here: the stage reads each cycle's residual norm back to decide
+whether to go on, and decides in the tensor's dtype as the reference does
+on the device, so the executed count and the exit reason match.  Times
+are CUDA-event spans on a GPU and `perf_counter` spans on the CPU.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch
 
 from evostencils_torch import NotPortedError, numpy_dtype
 from evostencils_torch.backend.lowering import CycleLowering
+from evostencils_torch.backend.vm import Program
 from evostencils_torch.ir import base
 from evostencils_torch.ir.transformations import canonical_string, collect_cycles
 from evostencils_torch.ops import stencil_ops as sops
@@ -39,6 +46,9 @@ from evostencils_torch.stencils import periodic
 # cycle's error norm — clamp to a finite, best-ordered value.
 ZERO_RATE_CLAMP = 1e-16
 
+# The reference's largest vmapped group; larger groups are split.
+GROUP_SIZE_LIMIT = 16
+
 # Device faults that poison one individual (a run of them aborts); checked
 # before the RuntimeError family they belong to.
 _DEVICE_ERRORS = (torch.cuda.OutOfMemoryError,) + (
@@ -47,11 +57,12 @@ _DEVICE_ERRORS = (torch.cuda.OutOfMemoryError,) + (
 
 
 class TorchProgramGenerator:
-    """Evaluate evolved cycles with torch on `device`.
+    """Evaluate evolved cycles with torch on `device` (the card by default).
 
     Implements the optimizer-facing protocol: `generate_storage`,
     `initialize_code_generation`, `generate_cycle_function`,
-    `generate_and_evaluate`, `reinitialize`, `uses_FAS`, plus the problem
+    `generate_and_evaluate`, `generate_and_evaluate_group`,
+    `evaluate_objectives`, `reinitialize`, `uses_FAS`, plus the problem
     properties.
     """
 
@@ -62,7 +73,7 @@ class TorchProgramGenerator:
         epsilon: Optional[float] = None,
         iteration_limit: Optional[int] = None,
         measure_reduction: Optional[float] = None,
-        device="cpu",
+        device="cuda",
     ):
         self.problem = problem
         self.device = torch.device(device)
@@ -90,6 +101,10 @@ class TorchProgramGenerator:
         # How many solver builds took the cycle-VM path vs IR lowering.
         self.vm_hits = 0
         self.vm_misses = 0
+        # Groups scored by generate_and_evaluate_group, and their members
+        # (members of a group that fell back one by one are not counted).
+        self.groups = 0
+        self.group_members = 0
 
     def vm_stats(self) -> dict:
         total = self.vm_hits + self.vm_misses
@@ -217,15 +232,20 @@ class TorchProgramGenerator:
                 )
             return self._solver_cache[key], program
         self.vm_misses += 1
-        omega_values = np.asarray(
-            [float(c.relaxation_factor) for c in collect_cycles(expression)], dtype=np.float32
-        )
+        omega_values = self._omega_vector(expression)
         key = ("solve", canonical_string(expression, parameterize_relaxation=True))
         if key not in self._solver_cache:
             step = self.lowering.lower_parameterized(expression)[0]
             operator = self._finest_operator_for(expression)
             self._solver_cache[key] = self._stage_power_fns(step, operator) + (operator,)
         return self._solver_cache[key], omega_values
+
+    @staticmethod
+    def _omega_vector(expression) -> np.ndarray:
+        """The relaxation factors in canonical slot order, as float32."""
+        return np.asarray(
+            [float(c.relaxation_factor) for c in collect_cycles(expression)], dtype=np.float32
+        )
 
     def _stage_power_fns(self, step, operator):
         """The two measurement loops around step(u, f, omega_arg): the
@@ -328,6 +348,48 @@ class TorchProgramGenerator:
             for x in host_state
         )
 
+    def _probe_state(self, expression):
+        """(u0, f, e0, zf) on the device at the expression's level: the
+        problem's initial state, the power iteration's seeded random error
+        and its zero right-hand side."""
+        u0_host, f_host = self.problem.initial_state(
+            self.dtype, level=self._expression_level(expression),
+            rhs_seed=self.rhs_seed, init_seed=self.init_seed,
+        )
+        rng = np.random.default_rng(self._probe_error_seed())
+        e0 = self._to_device(
+            rng.standard_normal(x.shape).astype(self._np_dtype) for x in u0_host
+        )
+        zf = self._to_device(np.zeros(x.shape, self._np_dtype) for x in u0_host)
+        return self._to_device(u0_host), self._to_device(f_host), e0, zf
+
+    def _power_verdict(self, rate, infinity):
+        """(ρ, iterations, result) from a power-iteration rate.  `result`
+        is the final fitness triple when the rate alone decides it (no
+        valid ρ, ρ ≥ 1, or more iterations than the cap), else None."""
+        if rate == 0.0:
+            rate = ZERO_RATE_CLAMP
+        if not math.isfinite(rate) or rate < 0.0:
+            return infinity, infinity, (infinity, infinity, infinity)
+        if rate >= 1.0:
+            # A real solve would stop at the iteration cap.
+            return rate, self.iteration_limit, (infinity, rate, self.iteration_limit)
+        iterations = int(math.ceil(math.log(self.epsilon) / math.log(rate)))
+        if iterations > self.iteration_limit:
+            return rate, iterations, (infinity, rate, iterations)
+        return rate, iterations, None
+
+    def _time_per_iteration_ms(self, stage_solve, u0, f, omegas, evaluation_samples) -> float:
+        """Median time of the stage solve over `evaluation_samples` runs,
+        per cycle its first run executed."""
+        executed = max(1, stage_solve(u0, f, omegas)[4])
+        times = sorted(
+            self._timed_stage(stage_solve, u0, f, omegas)
+            for _ in range(max(1, evaluation_samples))
+        )
+        self.run_time_total += sum(times)
+        return 1e3 * times[len(times) // 2] / executed
+
     # ---- core evaluation ----
 
     def generate_and_evaluate(
@@ -357,41 +419,17 @@ class TorchProgramGenerator:
     def _generate_and_evaluate_measured(self, expression, infinity, evaluation_samples):
         try:
             (stage_solve, power_solve, operator), omegas = self._build_solver(expression)
-            u0_host, f_host = self.problem.initial_state(
-                self.dtype, level=self._expression_level(expression),
-                rhs_seed=self.rhs_seed, init_seed=self.init_seed,
-            )
-            u0 = self._to_device(u0_host)
-            f = self._to_device(f_host)
+            u0, f, e0, zf = self._probe_state(expression)
 
             if self._np_dtype == np.float32:
                 # ρ by power iteration on the error-propagation operator.
-                rng = np.random.default_rng(self._probe_error_seed())
-                e0 = self._to_device(
-                    rng.standard_normal(x.shape).astype(self._np_dtype) for x in u0_host
-                )
-                zf = self._to_device(np.zeros(x.shape, self._np_dtype) for x in u0_host)
                 rate, _ = power_solve(e0, zf, omegas)
-                rate = float(rate)
                 self._consecutive_device_failures = 0
-                if rate == 0.0:
-                    rate = ZERO_RATE_CLAMP
-                if not math.isfinite(rate) or rate < 0.0:
-                    return infinity, infinity, infinity
-                rho = rate
-                if rho >= 1.0:
-                    # A real solve would stop at the iteration cap.
-                    return infinity, rho, self.iteration_limit
-                iterations = int(math.ceil(math.log(self.epsilon) / math.log(rho)))
-                if iterations > self.iteration_limit:
-                    return infinity, rho, iterations
-                stage1_executed = max(1, stage_solve(u0, f, omegas)[4])
-                times = sorted(
-                    self._timed_stage(stage_solve, u0, f, omegas)
-                    for _ in range(max(1, evaluation_samples))
-                )
-                self.run_time_total += sum(times)
-                t_iter_ms = 1e3 * times[len(times) // 2] / stage1_executed
+                rho, iterations, result = self._power_verdict(float(rate), infinity)
+                if result is not None:
+                    return result
+                t_iter_ms = self._time_per_iteration_ms(
+                    stage_solve, u0, f, omegas, evaluation_samples)
                 return iterations * t_iter_ms, rho, iterations
 
             # Restarted measurement: when a stage stalls at its residual
@@ -455,6 +493,93 @@ class TorchProgramGenerator:
         # Normalised by the executed iterations of the first stage.
         t_iter_ms = 1e3 * times[len(times) // 2] / stage1_executed
         return iterations * t_iter_ms, rho, iterations
+
+    def generate_and_evaluate_group(
+        self, expressions, infinity=1e100, evaluation_samples=3,
+        global_variable_values=None,
+    ):
+        """Evaluation of same-structure individuals (counterpart of the
+        reference's group path, evostencils_tpu/backend/evaluation.py:703).
+
+        All expressions share the ω-parameterized structural key.  Each
+        member's ρ is its own float32 power iteration, as
+        `generate_and_evaluate` computes it; the time per iteration is
+        measured once, on the first member that survives, and every later
+        survivor shares it.  The reference vmaps the power iteration over
+        the group's ω in one dispatch; here it runs once per member.
+        Returns a list of (time_to_convergence_ms, ρ, iterations) triples.
+        """
+        if global_variable_values:
+            self._apply_parameter_values(global_variable_values)
+
+        def one_by_one():
+            return [
+                self.generate_and_evaluate(
+                    e, infinity=infinity, evaluation_samples=evaluation_samples,
+                    global_variable_values=global_variable_values,
+                )
+                for e in expressions
+            ]
+
+        # The float64 measurement has no power iteration to share.
+        if (getattr(self.problem, "outer_solver", None) or self.uses_FAS()
+                or self._np_dtype != np.float32):
+            return one_by_one()
+        try:
+            (stage_solve, power_solve, _), omega_arg0 = self._build_solver(expressions[0])
+            if isinstance(omega_arg0, Program):
+                # Same-structure programs share opcodes; each member brings
+                # its own ω.
+                vm = self._vms[self._expression_level(expressions[0])]
+                omega_args = []
+                for e in expressions:
+                    program = vm.translate(e)
+                    if program is None or not np.array_equal(program.opcodes, omega_arg0.opcodes):
+                        raise RuntimeError("no group path")
+                    omega_args.append(program)
+            else:
+                omega_args = [self._omega_vector(e) for e in expressions]
+            if len(expressions) > GROUP_SIZE_LIMIT:
+                # As the reference: the halves drop global_variable_values.
+                return self.generate_and_evaluate_group(
+                    expressions[:GROUP_SIZE_LIMIT], infinity, evaluation_samples
+                ) + self.generate_and_evaluate_group(
+                    expressions[GROUP_SIZE_LIMIT:], infinity, evaluation_samples
+                )
+            u0, f, e0, zf = self._probe_state(expressions[0])
+            rates = [float(power_solve(e0, zf, w)[0]) for w in omega_args]
+            self._consecutive_device_failures = 0
+            self.groups += 1
+            self.group_members += len(expressions)
+        except (RuntimeError, ValueError, TypeError, NotImplementedError, FloatingPointError):
+            return one_by_one()
+
+        results = []
+        t_iter_ms = None
+        for omegas, rate in zip(omega_args, rates):
+            rho, iterations, result = self._power_verdict(rate, infinity)
+            if result is not None:
+                results.append(result)
+                continue
+            if t_iter_ms is None:
+                try:
+                    t_iter_ms = self._time_per_iteration_ms(
+                        stage_solve, u0, f, omegas, evaluation_samples)
+                except _DEVICE_ERRORS:
+                    self._device_failed()
+                    results.append((infinity, rho, iterations))
+                    continue
+            results.append((iterations * t_iter_ms, rho, iterations))
+        return results
+
+    def evaluate_objectives(self, expression, evaluation_samples=3, infinity=1e100):
+        """(ρ, time_per_iteration_ms): the NSGA-II objective pair."""
+        t, rho, iterations = self.generate_and_evaluate(
+            expression, infinity=infinity, evaluation_samples=evaluation_samples
+        )
+        if not math.isfinite(t) or t >= infinity:
+            return rho, infinity
+        return rho, t / iterations
 
     def _host_residual(self, operator, u_fields, f_fields):
         """Exact float64 residual f − A·u on the host."""

@@ -3,19 +3,25 @@
 
 `CycleLowering(dtype, device).lower(cycle)` returns
 `step(u_fields, f_fields) -> u_fields'`, which walks the IR and runs torch
-ops on `device`.  Semantics as in the reference:
+ops on `device` (the card unless the caller asks for the CPU).  Semantics
+as in the reference:
   * Cycle(u, f, corr, partitioning, ω): u' = u + ω·corr for Single; for
     RedBlack two masked half-sweeps with the residual recomputed against
     the updated iterate between colours.  A scalar 2D constant-stencil
     red-black collective-Jacobi step in float32 goes to the fused sweep
-    (ops/rb_sweep.py), the CUDA kernel on the GPU.
+    (ops/rb_sweep.py), the CUDA kernel on the GPU, unless the lowering was
+    built with `use_kernels=False` (the reference's `use_pallas=False`):
+    the kernel has no backward, so the ω tuner differentiates through the
+    masked half-sweeps instead.
   * Inverse(B)·r: Diagonal → per-field point Jacobi, ElementwiseDiagonal →
     per-point n_fields×n_fields solve, block-diagonal system.Operator →
     batched local dense solves.
-  * CoarseGridSolver without an expression: precomputed dense inverse.
+  * CoarseGridSolver without an expression: precomputed dense inverse;
+    with an evolved cycle of an earlier run (`apply_as_solver`, multi-run
+    level splitting): that cycle once on (0, r).
 
-Nonlinear (FAS) operators, Krylov coarse solves, nested evolved coarse
-solvers and variable coefficients raise NotPortedError.  The reference's
+Nonlinear (FAS) operators, Krylov coarse solves and variable coefficients
+raise NotPortedError.  The reference's
 `lax.scan` smoothing chains exist to cut XLA compile time; eager torch
 applies the same smoothing steps one after another.
 """
@@ -64,9 +70,10 @@ def _constant_stencil(entry):
 
 
 class CycleLowering:
-    def __init__(self, dtype=torch.float32, device="cpu"):
+    def __init__(self, dtype=torch.float32, device="cuda", use_kernels=True):
         self.dtype = dtype
         self.device = torch.device(device)
+        self.use_kernels = use_kernels
         self._dense_specs = {}
         self._block_specs = {}
         self._center_inv_cache = {}
@@ -233,7 +240,9 @@ class CycleLowering:
         if isinstance(expr, KrylovSubspaceMethod):
             raise NotPortedError(f"Krylov coarse-grid solver {expr.name}")
         if hasattr(expr, "apply_as_solver"):
-            raise NotPortedError("nested evolved coarse-grid solvers")
+            # Nested evolved cycle from a previous optimization run
+            # (multi-run level splitting): run it once on (0, r).
+            return expr.apply_as_solver(self, tuple(r_state))
         raise RuntimeError(f"Unsupported coarse-grid solver expression {expr!r}")
 
     # ------------------------------------------------------------------
@@ -256,12 +265,16 @@ class CycleLowering:
     def lower_parameterized(self, expression: base.Expression):
         """Build step(u, f, omegas) with the relaxation factors as an
         argument in canonical slot order (`collect_cycles`).  Returns
-        (step, omega_values)."""
+        (step, omega_values).  A tensor `omegas` stays a tensor through the
+        cycle (the ω tuner differentiates through it, and a device ω costs
+        no host sync); a sequence of numbers gives Python floats."""
         cycles = collect_cycles(expression)
         slots = {id(c): i for i, c in enumerate(cycles)}
         omega_values = [float(c.relaxation_factor) for c in cycles]
 
         def step(u: Tuple, f: Tuple, omegas) -> Tuple:
+            if torch.is_tensor(omegas):
+                return self._walk(expression, u, f, lambda node: omegas[slots[id(node)]])
             return self._walk(expression, u, f, lambda node: float(omegas[slots[id(node)]]))
 
         return step, omega_values
@@ -385,7 +398,7 @@ class CycleLowering:
         reference's Pallas gate: a scalar 2D constant-coefficient float32
         operator smoothed by its own elementwise diagonal); None to take
         the masked path."""
-        if not isinstance(smoother_op, system.ElementwiseDiagonal):
+        if not self.use_kernels or not isinstance(smoother_op, system.ElementwiseDiagonal):
             return None
         if smoother_op.operand is not operator:
             return None

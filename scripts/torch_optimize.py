@@ -1,0 +1,230 @@
+#!/usr/bin/env python
+"""Evolve multigrid solvers with the PyTorch/CUDA port (the counterpart of
+scripts/optimize.py).
+
+Runs grammar-guided genetic programming for 2D Poisson through
+evostencils_torch on the GPU, every fitness evaluation on the card with the
+hand-written red-black sweep kernel, and writes the reference's artifacts:
+`individual_j.txt` (hall of fame as grammar strings), `program.txt`,
+`logbooks.p`, `populations.p` and, with --tune, `individual_0_tuned.txt` or
+`individual_0_tune_rejected.txt`.  Checkpoints pickle evostencils_torch
+classes: they resume here, not in scripts/optimize.py.
+
+Examples:
+  python3 scripts/torch_optimize.py --problem poisson2d --method nsga2 \\
+      --mu 8 --lambda 8 --generations 50
+  python3 scripts/torch_optimize.py --cpu --min-level 3 --max-level 5 \\
+      --mu 4 --lambda 4 --generations 2 --dtype float64
+
+Without CUDA it stops unless --cpu is given.  Not ported yet (flags of
+scripts/optimize.py left out): --model-based, --problem-file, --knowledge,
+--helmholtz-k0, --outer-cap, --ladder-rungs, --no-outer, --mesh and
+--multihost.
+"""
+
+import argparse
+import os
+import random
+import sys
+import time
+from typing import NamedTuple, Optional
+
+if __package__ in (None, ""):
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import torch
+
+from evostencils_torch.backend.evaluation import TorchProgramGenerator
+from evostencils_torch.backend.lowering import CycleLowering
+from evostencils_torch.grammar import gp
+from evostencils_torch.optimization.optimizer import Optimizer
+from evostencils_torch.problems import build_named_problem
+
+
+class Run(NamedTuple):
+    """What one run left behind, for callers in the same process."""
+
+    optimizer: Optimizer
+    generator: TorchProgramGenerator
+    best: str
+    halls_of_fame: list
+    evolution_s: float
+    # (ρ before, ρ after, tuned ω) of --tune, else None.
+    tuning: Optional[tuple]
+
+
+def parse_arguments(argv=None):
+    parser = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--problem", default="poisson2d", choices=["poisson2d"])
+    parser.add_argument("--method", default="nsga2",
+                        choices=["nsga2", "nsga3", "sogp", "random"])
+    parser.add_argument("--mu", type=int, default=8)
+    parser.add_argument("--lambda", dest="lambda_", type=int, default=8)
+    parser.add_argument("--generations", type=int, default=50)
+    parser.add_argument("--generalization-interval", type=int, default=150)
+    parser.add_argument("--min-level", type=int, default=5)
+    parser.add_argument("--max-level", type=int, default=9)
+    parser.add_argument("--levels-per-run", type=int, default=None)
+    parser.add_argument("--evaluation-samples", type=int, default=3)
+    parser.add_argument("--crossover-probability", type=float, default=0.7)
+    parser.add_argument("--mutation-probability", type=float, default=0.3)
+    parser.add_argument("--max-local-system-size", type=int, default=8)
+    parser.add_argument("--tune", action="store_true",
+                        help="gradient-tune the best individual's relaxation "
+                             "factors after evolution")
+    parser.add_argument("--seed-file", action="append", default=[],
+                        help="file whose first non-comment line is a grammar "
+                             "string seeded into the initial population "
+                             "(repeatable)")
+    parser.add_argument("--seed-textbook", action="append", default=[],
+                        metavar="PRE,POST,OMEGA[,SMOOTHER]",
+                        help="seed a textbook V(PRE,POST) cycle at relaxation "
+                             "OMEGA into the initial population (repeatable); "
+                             "an optional 4th field picks the smoother "
+                             "production (collective_jacobi by default)")
+    parser.add_argument("--continue-from-checkpoint", action="store_true")
+    parser.add_argument("--seed", type=int, default=None)
+    parser.add_argument("--output", default=None, help="result directory")
+    parser.add_argument("--cpu", action="store_true",
+                        help="evaluate on the CPU instead of the GPU")
+    parser.add_argument("--dtype", default="float32", choices=["float32", "float64"])
+    args = parser.parse_args(argv)
+    if not args.cpu and not torch.cuda.is_available():
+        parser.error("no CUDA device: run on a GPU, or pass --cpu")
+    return args
+
+
+def _seed_individuals(args, problem):
+    seeds = []
+    for path in args.seed_file:
+        with open(path) as fh:
+            for line in fh:
+                line = line.strip()
+                if line and not line.startswith("#"):
+                    seeds.append(line)
+                    break
+    if args.seed_textbook:
+        from evostencils_torch.grammar.multigrid import (
+            generate_primitive_set, textbook_cycle_string,
+        )
+        from evostencils_torch.utils.champions import omega_index
+
+        _, terminals = generate_primitive_set(
+            problem.approximation(), problem.rhs(), problem.dimension,
+            problem.coarsening_factors, problem.max_level, problem.equations,
+            problem.operators, problem.fields, depth=problem.max_level - problem.min_level,
+            maximum_local_system_size=args.max_local_system_size,
+        )
+        for spec in args.seed_textbook:
+            parts = spec.split(",")
+            pre, post, omega = int(parts[0]), int(parts[1]), float(parts[2])
+            kwargs = {"smoother_name": parts[3]} if len(parts) > 3 else {}
+            seeds.append(textbook_cycle_string(
+                terminals, pre, post, omega_index=omega_index(omega), **kwargs))
+    return seeds
+
+
+def _write_artifacts(output_dir, args, best, program, pops, logbooks, hofs):
+    """The reference's durable artifacts (scripts/optimize.py:274-288):
+    grammar strings are the re-evaluable representation."""
+    for j, individual in enumerate(hofs[-1][: 2 * args.mu]):
+        with open(os.path.join(output_dir, f"individual_{j}.txt"), "w") as f:
+            f.write(str(individual) + "\n")
+            f.write(f"# fitness: {individual.fitness_values}\n")
+    with open(os.path.join(output_dir, "program.txt"), "w") as f:
+        f.write(program)
+    Optimizer.dump_data_structure(
+        [lb.records for lb in logbooks], os.path.join(output_dir, "logbooks.p")
+    )
+    Optimizer.dump_data_structure(
+        [[(str(i), i.fitness_values) for i in pop] for pop in pops],
+        os.path.join(output_dir, "populations.p"),
+    )
+
+
+def _tune(output_dir, optimizer, generator, best):
+    """Gradient-tune the best individual's ω (scripts/optimize.py:291-320);
+    publish the tuned string only when ρ did not get worse."""
+    from evostencils_torch.optimization.relaxation import tune_relaxation_factors
+
+    pset = optimizer._pset
+    expr, _ = gp.compile_tree(gp.parse_tree(best, pset), pset)
+    _, rho0, it0 = generator.generate_and_evaluate(expr, evaluation_samples=3)
+    lowering = CycleLowering(generator.problem.dtype, generator.device, use_kernels=False)
+    tuned, _ = tune_relaxation_factors(expr, generator.problem, lowering=lowering)
+    _, rho1, it1 = generator.generate_and_evaluate(expr, evaluation_samples=3)
+    print(f"Gradient-tuned relaxation factors: rho {rho0:.4f} -> {rho1:.4f}, "
+          f"iterations {it0} -> {it1}")
+    if rho1 <= rho0:
+        with open(os.path.join(output_dir, "individual_0_tuned.txt"), "w") as f:
+            f.write(str(gp.parse_tree(best, pset)) + "\n")
+            f.write(f"# tuned omegas: {[round(w, 4) for w in tuned]}\n")
+            f.write(f"# rho: {rho0} -> {rho1}\n")
+    else:
+        print("Tuned omegas degraded the champion; keeping the untuned "
+              "string (tuner probe assumes a linear cycle operator).")
+        with open(os.path.join(output_dir, "individual_0_tune_rejected.txt"), "w") as f:
+            f.write(f"# tuning REJECTED: rho {rho0} -> {rho1}\n")
+            f.write(f"# rejected omegas: {[round(w, 4) for w in tuned]}\n")
+    return rho0, rho1, tuned
+
+
+def run(argv=None) -> Run:
+    """Parse `argv`, evolve, write the artifacts and, with --tune, tune."""
+    args = parse_arguments(argv)
+    problem = build_named_problem(args.problem, args.min_level, args.max_level)
+    problem = problem._clone(dtype=getattr(torch, args.dtype))
+    output_dir = args.output or f"results_{problem.name}_torch"
+    os.makedirs(output_dir, exist_ok=True)
+
+    generator = TorchProgramGenerator(problem, device="cpu" if args.cpu else "cuda")
+    optimizer = Optimizer.for_problem(
+        problem,
+        program_generator=generator,
+        checkpoint_directory_path=os.path.join(output_dir, "checkpoints"),
+        rng=random.Random(args.seed),
+    )
+    method = {
+        "nsga2": optimizer.NSGAII,
+        "nsga3": optimizer.NSGAIII,
+        "sogp": optimizer.SOGP,
+    }.get(args.method, optimizer.NSGAII)
+    seed_individuals = _seed_individuals(args, problem)
+
+    start = time.perf_counter()
+    best, program, pops, logbooks, hofs = optimizer.evolutionary_optimization(
+        mu_=args.mu,
+        lambda_=args.lambda_,
+        generations=args.generations,
+        generalization_interval=args.generalization_interval,
+        crossover_probability=args.crossover_probability,
+        mutation_probability=args.mutation_probability,
+        optimization_method=method,
+        use_random_search=args.method == "random",
+        levels_per_run=args.levels_per_run,
+        evaluation_samples=args.evaluation_samples,
+        continue_from_checkpoint=args.continue_from_checkpoint,
+        maximum_local_system_size=args.max_local_system_size,
+        seed_individuals=seed_individuals or None,
+        verbose=True,
+    )
+    evolution_s = time.perf_counter() - start
+    print(f"Evaluations: {optimizer._total_number_of_evaluations} in "
+          f"{evolution_s:.2f} s, {generator.group_members} of them in "
+          f"{generator.groups} same-structure groups; cache hits "
+          f"{optimizer._individual_cache_hits}")
+    _write_artifacts(output_dir, args, best, program, pops, logbooks, hofs)
+    print(f"\nBest individual:\n{best}")
+    tuning = _tune(output_dir, optimizer, generator, best) if args.tune else None
+    print(f"Results written to {output_dir}/")
+    return Run(optimizer, generator, best, hofs, evolution_s, tuning)
+
+
+def main(argv=None) -> int:
+    run(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

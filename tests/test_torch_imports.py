@@ -4,14 +4,19 @@ The machine with the GPU has no JAX, so this is what breaks first there;
 and the port keeps its own copies of the reference's array-free layers,
 so it must not reach into `evostencils_tpu` either, not even lazily.  A
 fresh interpreter refuses every `jax`/`jaxlib`/`evostencils_tpu` import,
-imports the port's modules and chip_smoke (without running its main),
-builds a grammar and compiles a tree through the port (which runs the
-lazy imports inside the IR), and must end with none of them loaded.
+imports the port's modules, scripts/torch_optimize.py and chip_smoke
+(without running its main), builds a grammar and compiles a tree through
+the port (which runs the lazy imports inside the IR), runs the evolution
+entry point on the CPU for one generation with --tune, and must end with
+none of them loaded.
 """
 
 import os
 import subprocess
 import sys
+
+import pytest
+import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -35,6 +40,7 @@ MODULES = [
     "evostencils_torch.grammar.multigrid",
     "evostencils_torch.utils",
     "evostencils_torch.utils.champions",
+    "evostencils_torch.utils.logbook",
     "evostencils_torch.problems",
     "evostencils_torch.problems.api",
     "evostencils_torch.problems.poisson",
@@ -49,13 +55,19 @@ MODULES = [
     "evostencils_torch.backend.evaluation",
     "evostencils_torch.interop",
     "evostencils_torch.measure",
+    "evostencils_torch.optimization",
+    "evostencils_torch.optimization.selection",
+    "evostencils_torch.optimization.intergrid_transfer",
+    "evostencils_torch.optimization.optimizer",
+    "evostencils_torch.optimization.relaxation",
+    "scripts.torch_optimize",
     "chip_smoke",
 ]
 
 REFUSED = ("jax", "jaxlib", "evostencils_tpu")
 
 PROGRAM = f"""
-import importlib, importlib.abc, random, sys
+import importlib, importlib.abc, os, random, sys
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -87,18 +99,34 @@ cycle = reference_cycles.generate_v_22_cycle_two_grid(terminals[0], problem.rhs(
 TorchProgramGenerator(problem, dtype=torch.float64, device="cpu").generate_and_evaluate(
     cycle, evaluation_samples=1)
 apply_stored_omegas(cycle, [1.0, 1.0, 1.0, 1.0], label="import test")
+from scripts import torch_optimize
+output = sys.argv[1]
+assert torch_optimize.main(["--cpu", "--min-level", "3", "--max-level", "5", "--mu", "4",
+                            "--lambda", "4", "--generations", "1", "--evaluation-samples", "1",
+                            "--seed", "1", "--tune", "--output", output]) == 0
+assert os.path.isfile(os.path.join(output, "program.txt"))
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in {REFUSED!r})
 assert not loaded, loaded
 print("imported", len({MODULES!r}), "modules without jax or evostencils_tpu")
 """
 
 
-def test_port_and_chip_smoke_import_without_jax_or_the_jax_package():
+def test_port_and_chip_smoke_import_without_jax_or_the_jax_package(tmp_path):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(filter(None, [ROOT, env.get("PYTHONPATH")]))
     proc = subprocess.run(
-        [sys.executable, "-c", PROGRAM], cwd=ROOT, env=env,
+        [sys.executable, "-c", PROGRAM, str(tmp_path)], cwd=ROOT, env=env,
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "without jax or evostencils_tpu" in proc.stdout
+
+
+def test_evolution_entry_point_needs_the_card_or_cpu(monkeypatch, capsys):
+    from scripts import torch_optimize
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exit_info:
+        torch_optimize.main(["--generations", "1"])
+    assert exit_info.value.code != 0
+    assert "--cpu" in capsys.readouterr().err

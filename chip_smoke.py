@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's fitness-evaluation path once on one GPU.
+"""Drive the PyTorch/CUDA port's fitness-evaluation paths once on one GPU.
 
     python3 chip_smoke.py
 
@@ -49,6 +49,44 @@ JSON line:
    torch.profiler: wall time, device busy time and idle share, device
    operations, the kernel's share; the full table by kernel goes to
    chiprun_out/profile_champion_eval.txt.
+7. helmholtz: the published Helmholtz protocol on the card: levels 3-7
+   (127² finest), complex128, outer target 1e-7.  (a) The textbook V(2,1)
+   ω = 0.6 cycle as the preconditioner of BiCGStab, rung by rung at k = 80,
+   160, 320 (the loop of scripts/torch_evaluate_helmholtz_ladder.py), then
+   once more through `generate_and_evaluate(global_variable_values={"k":
+   80.0})`, which takes the k-ladder and must return the mean of the rungs,
+   or the sums up to a failing rung.  The ladder's outer cap is cut from the
+   protocol's 10,000 to 600: an outer iteration takes tens of milliseconds
+   of host time, and the rungs above k = 80 run into the full cap (that
+   takes minutes each; scripts/torch_evaluate_helmholtz_ladder.py runs it).
+   The k = 80 rung converges below the cut cap, so its count is the
+   protocol's.  (b) The stored k = 320 champion
+   (artifacts/helmholtz_k320_r5/individual_0.txt) at the full cap through
+   the optimizer's grammar-string entry: its count is recorded, not judged,
+   because thousands of BiCGStab iterations follow the rounding (the
+   reference measured 6,515 on its CPU, the port's CPU test 7,545); it must
+   contract (ρ < 1) without a NaN.  The k = 80 rung must converge and is
+   repeated on the CPU: the same verdict, the count within 20 %.  Per rung
+   it prints iterations, ρ, time to target, ms per outer iteration, the
+   probe's verdict and the stages.  A complex state never reaches the
+   float32 kernel: zero launches.
+8. helmholtz_c64: the same V(2,1) at k = 80 in complex64, the staged path
+   that restarts from the complex128 host residual, its cap cut to 1,000.
+   How far it gets, in how many stages and iterations, is recorded, not
+   judged (the full cap: scripts/torch_evaluate_helmholtz_ladder.py --dtype
+   complex64).
+9. krylov_cgs: a V(2,2) cycle with red-black smoothing over the bench levels
+   5-9 in float32 whose dense coarsest solve (31²) is replaced by a
+   CoarseGridSolver with 80 iterations of conjugate gradients (twice the 40
+   that tests/test_optimizer.py uses at 15²: CG's count grows with 1/h).
+   ρ must be finite and within 0.05 of the same cycle's with the dense
+   solve, and the kernel must have launched at 511².
+10. helmholtz_evolve: scripts/torch_optimize.py on Helmholtz (k0 = 20,
+   levels 3-5, complex128, SOGP, μ = λ = 4, one generation, one ladder rung,
+   outer cap 60, one evaluation sample), artifacts under
+   chiprun_out/helmholtz_evolve/.  The best
+   individual must have a finite fitness and re-evaluate to the iteration
+   count it had during the run.
 
 Before the last line it prints the kernels as one JSON object and the card's
 `nvidia-smi` name and power limit; the last line is
@@ -71,16 +109,27 @@ import torch
 from evostencils_torch.backend.evaluation import TorchProgramGenerator
 from evostencils_torch.grammar import gp
 from evostencils_torch.grammar.multigrid import generate_primitive_set
-from evostencils_torch.ir.transformations import collect_cycles
+from evostencils_torch.ir import base, krylov, reference_cycles
+from evostencils_torch.ir import partitioning as part
+from evostencils_torch.ir.transformations import canonical_string, collect_cycles
 from evostencils_torch.measure import LEVELS, bound_ms, median_device_ms
 from evostencils_torch.ops import _build, rb_sweep
+from evostencils_torch.optimization.optimizer import Optimizer
+from evostencils_torch.problems.helmholtz import helmholtz_2d
 from evostencils_torch.problems.poisson import poisson_2d
 from evostencils_torch.stencils import constant
 from evostencils_torch.utils.champions import apply_stored_omegas, parse_champion_file
-from scripts import torch_optimize
+from scripts import torch_evaluate_helmholtz_ladder, torch_optimize
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CHAMPION = os.path.join(ROOT, "artifacts", "poisson2d_champion_r2_tuned.txt")
+HELMHOLTZ_CHAMPION = os.path.join(ROOT, "artifacts", "helmholtz_k320_r5", "individual_0.txt")
+# Outer caps cut from the protocol's 10,000 to fit this script's time
+# limit: one outer iteration of a V(2,1) preconditioner costs tens of
+# milliseconds of host time.  The ladder's cap stays above 4 × the probe's
+# 128 iterations, so the probe runs, and above the k = 80 rung's count.
+LADDER_CAP = 600
+C64_CAP = 1000
 KERNEL_SOURCE = "evostencils_torch/csrc/rb_sweep.cu"
 TOLERANCE = 5e-5  # as tests/test_pallas.py holds the Pallas kernels
 OMEGA = 1.15
@@ -464,6 +513,240 @@ def phase_profile(generator, champion) -> None:
     })
 
 
+def rung_record(rung) -> dict:
+    """One evaluated rung of the k-ladder as a JSON record.  A converged
+    rung's time per outer iteration is its timed solve's; a failed one's is
+    its wall time (probe and stages) over the iterations it ran, which for
+    a rung the probe killed are the probe's (its count is a projection)."""
+    if rung.converged:
+        ms_per_iteration = rung.time_ms / rung.iterations
+    else:
+        killed = rung.outer["probe"] == "killed"
+        executed = rung.outer["probe_iterations"] if killed else rung.iterations
+        ms_per_iteration = rung.wall_s * 1e3 / max(executed, 1)
+    return {"k": rung.k, "converged": rung.converged, "iterations": rung.iterations,
+            "rho": rung.rho, "time_to_target_ms": rung.time_ms if rung.converged else None,
+            "ms_per_outer_iteration": ms_per_iteration, "wall_s": rung.wall_s, **rung.outer}
+
+
+def textbook_v21(problem):
+    _, terminals = generate_primitive_set(
+        problem.approximation(), problem.rhs(), problem.dimension,
+        problem.coarsening_factors, problem.max_level, problem.equations,
+        problem.operators, problem.fields, depth=problem.max_level - problem.min_level,
+        maximum_local_system_size=8,
+    )
+    return reference_cycles.generate_v_cycle(
+        terminals, problem.rhs(), pre_smoothing=2, post_smoothing=1, omega=0.6)
+
+
+def phase_helmholtz(failures: list) -> None:
+    """The published protocol in complex128 on the card: the textbook
+    V(2,1) across the k-ladder, the ladder call, the stored k = 320
+    champion, and the k = 80 rung again on the CPU."""
+    start = time.perf_counter()
+    rb_sweep.launches.clear()
+    problem = helmholtz_2d(min_level=3, max_level=7, k=80.0)
+    problem.outer_solver["max_iterations"] = LADDER_CAP
+    cycle = textbook_v21(problem)
+    generator = TorchProgramGenerator(problem, dtype=torch.complex128, device="cuda")
+    rungs = torch_evaluate_helmholtz_ladder.evaluate_ladder(
+        generator, "textbook V(2,1) ω=0.6", cycle, 80.0, 3)
+    t0 = time.perf_counter()
+    ladder = generator.generate_and_evaluate(
+        cycle, evaluation_samples=1, global_variable_values={"k": 80.0})
+    torch.cuda.synchronize()
+    ladder_s = time.perf_counter() - t0
+    # The reference's rule: the mean over the rungs, or the sums up to and
+    # with the first failing one.
+    failing = next((i for i, r in enumerate(rungs) if not r.converged or r.rho > 1), None)
+    counted = rungs if failing is None else rungs[:failing + 1]
+    divisor = len(rungs) if failing is None else 1
+    expected_iterations = sum(r.iterations for r in counted) / divisor
+    expected_rho = sum(r.rho for r in counted) / divisor
+
+    with open(HELMHOLTZ_CHAMPION) as f:
+        champion = "".join(line for line in f if not line.startswith("#")).strip()
+    problem_320 = helmholtz_2d(min_level=3, max_level=7, k=320.0, dtype=torch.complex128)
+    generator_320 = TorchProgramGenerator(problem_320, dtype=torch.complex128, device="cuda")
+    optimizer = Optimizer.for_problem(
+        problem_320, program_generator=generator_320, rng=random.Random(0))
+    t0 = time.perf_counter()
+    champ_t, champ_rho, champ_iterations = (
+        optimizer.generate_and_evaluate_program_from_grammar_representation(
+            champion, 4, evaluation_samples=1))
+    torch.cuda.synchronize()
+    champion_s = time.perf_counter() - t0
+
+    cpu = TorchProgramGenerator(problem, dtype=torch.complex128, device="cpu")
+    cpu_rung = torch_evaluate_helmholtz_ladder.evaluate_ladder(
+        cpu, "textbook V(2,1) ω=0.6 on the CPU", cycle, 80.0, 1)[0]
+
+    emit({
+        "phase": "helmholtz", "dtype": "complex128", "levels": [3, 7], "target": 1e-7,
+        "cap": problem.outer_solver["max_iterations"],
+        "rungs": [rung_record(r) for r in rungs],
+        "ladder_call": {"time_ms": ladder[0] if ladder[0] < 1e50 else None, "rho": ladder[1],
+                        "iterations": ladder[2], "expected_iterations": expected_iterations,
+                        "wall_s": ladder_s},
+        "vm_stats": generator.vm_stats(),
+        "champion_k320": {
+            "iterations": champ_iterations, "rho": champ_rho,
+            "time_to_target_ms": champ_t if champ_t < 1e50 else None,
+            # Converged: the timed solve's; else the wall time over the run's iterations.
+            "ms_per_outer_iteration": (champ_t if champ_t < 1e50 else champion_s * 1e3)
+            / champ_iterations,
+            "converged": champ_t < 1e50, "cap": problem_320.outer_solver["max_iterations"],
+            "reference_iterations": 6515, "wall_s": champion_s,
+            **generator_320.last_outer_solve,
+        },
+        "cpu_k80": rung_record(cpu_rung),
+        "rb_sweep_launches": rb_sweep.launches.total(),
+        "phase_s": time.perf_counter() - start,
+    })
+
+    check_results(failures, "helmholtz rung", [(r.time_ms, r.rho, r.iterations) for r in rungs])
+    check_results(failures, "helmholtz ladder and champion",
+                  [ladder, (champ_t, champ_rho, champ_iterations)])
+    if not (rungs[0].converged and rungs[0].rho < 1.0):
+        failures.append(f"helmholtz: the k = 80 rung did not converge ({rungs[0]})")
+    if ladder[2] != expected_iterations or abs(ladder[1] - expected_rho) > 1e-12:
+        failures.append(f"helmholtz: the ladder call gave {ladder[1:]}, its rungs "
+                        f"{(expected_rho, expected_iterations)}")
+    if generator.problem.parameters["k"] != 80.0:
+        failures.append("helmholtz: the ladder call did not restore k")
+    if not (0.0 < champ_rho < 1.0 and champ_iterations >= 128):
+        failures.append(f"helmholtz: the k = 320 champion does not contract "
+                        f"(rho {champ_rho} in {champ_iterations} outer iterations)")
+    if cpu_rung.converged != rungs[0].converged or (
+            abs(cpu_rung.iterations - rungs[0].iterations) > 0.2 * rungs[0].iterations):
+        failures.append(f"helmholtz: k = 80 on the CPU {cpu_rung} vs on the card {rungs[0]}")
+    if rb_sweep.launches.total():
+        failures.append("helmholtz: the float32 kernel launched on a complex state")
+
+
+def phase_helmholtz_c64(failures: list) -> None:
+    """V(2,1) at k = 80 in complex64: what the staged path does on the
+    card is recorded; only a NaN fails."""
+    problem = helmholtz_2d(min_level=3, max_level=7, k=80.0)
+    problem.outer_solver["max_iterations"] = C64_CAP
+    generator = TorchProgramGenerator(problem, dtype=torch.complex64, device="cuda")
+    rung = torch_evaluate_helmholtz_ladder.evaluate_ladder(
+        generator, "textbook V(2,1) ω=0.6 complex64", textbook_v21(problem), 80.0, 1)[0]
+    emit({"phase": "helmholtz_c64", "dtype": "complex64", "cap": C64_CAP,
+          "reached_1e-7": rung.converged,
+          **rung_record(rung)})
+    if any(math.isnan(v) for v in (rung.time_ms, rung.rho, rung.iterations)):
+        failures.append(f"helmholtz_c64: a NaN fitness value ({rung})")
+
+
+CG_ITERATIONS = 80
+
+
+def v22_cycle(terminal_list, rhs, coarse_solver, level_index=0):
+    """reference_cycles.generate_v_cycle's V(2,2) with red-black smoothing,
+    its coarsest solve the CoarseGridSolver that `coarse_solver(A_c)` builds."""
+    terminals = terminal_list[level_index]
+    u, A = terminals.approximation, terminals.operator
+    u = reference_cycles._smooth(u, rhs, A, 1.0, part.RedBlack, steps=2)
+    f_c = base.Multiplication(terminals.restriction, base.Residual(A, u, rhs))
+    if level_index + 1 < len(terminal_list):
+        coarse = v22_cycle(terminal_list, f_c, coarse_solver, level_index + 1)
+    else:
+        coarse = base.Multiplication(coarse_solver(terminals.coarse_operator), f_c)
+    u = base.Cycle(u, rhs, base.Multiplication(terminals.prolongation, coarse),
+                   relaxation_factor=1.0)
+    return reference_cycles._smooth(u, rhs, A, 1.0, part.RedBlack, steps=2)
+
+
+def phase_krylov_cgs(failures: list) -> dict:
+    """The float32 bench V(2,2) with a conjugate-gradient coarsest solve
+    against the same cycle with the dense one; returns the kernel's launches
+    by grid shape."""
+    problem = poisson_2d(min_level=5, max_level=9, dtype=torch.float32)
+    _, terminals = generate_primitive_set(
+        problem.approximation(), problem.rhs(), problem.dimension,
+        problem.coarsening_factors, problem.max_level, problem.equations,
+        problem.operators, problem.fields, depth=problem.max_level - problem.min_level,
+        maximum_local_system_size=8,
+    )
+    generator = TorchProgramGenerator(
+        problem, dtype=torch.float32, iteration_limit=500, device="cuda")
+    with_cg = v22_cycle(terminals, problem.rhs(), lambda A_c: base.CoarseGridSolver(
+        "CGS", A_c, krylov.generate_conjugate_gradient(A_c, CG_ITERATIONS)))
+    with_dense = v22_cycle(
+        terminals, problem.rhs(), lambda A_c: base.CoarseGridSolver("CGS", A_c))
+    rb_sweep.launches.clear()
+    t0 = time.perf_counter()
+    cg = generator.generate_and_evaluate(with_cg, evaluation_samples=3)
+    torch.cuda.synchronize()
+    cg_s = time.perf_counter() - t0
+    by_shape = dict(rb_sweep.launches)
+    dense = generator.generate_and_evaluate(with_dense, evaluation_samples=3)
+    emit({
+        "phase": "krylov_cgs", "cg_iterations": CG_ITERATIONS, "coarsest": [31, 31],
+        "cg": {"time_to_target_ms": cg[0], "rho": cg[1], "iterations": cg[2], "eval_s": cg_s},
+        "dense": {"time_to_target_ms": dense[0], "rho": dense[1], "iterations": dense[2]},
+        "vm_stats": generator.vm_stats(),
+        "rb_sweep_launches_by_shape": {f"{r}x{c}": n for (r, c), n in sorted(by_shape.items())},
+    })
+    check_results(failures, "krylov_cgs", [cg, dense])
+    if not (math.isfinite(cg[1]) and abs(cg[1] - dense[1]) < 0.05):
+        failures.append(f"krylov_cgs: rho {cg[1]} with CG vs {dense[1]} with the dense solve")
+    if not by_shape.get((511, 511)):
+        failures.append("krylov_cgs: the kernel never launched at 511²")
+    return by_shape
+
+
+HELMHOLTZ_EVOLVE_ARGS = [
+    "--problem", "helmholtz", "--helmholtz-k0", "20", "--min-level", "3", "--max-level", "5",
+    "--dtype", "complex128", "--method", "sogp", "--mu", "4", "--lambda", "4",
+    "--generations", "1", "--ladder-rungs", "1", "--outer-cap", "60",
+    "--evaluation-samples", "1", "--seed", "3",
+    "--output", os.path.join(ROOT, "chiprun_out", "helmholtz_evolve"),
+]
+
+
+def phase_helmholtz_evolve(failures: list) -> None:
+    """One generation of Helmholtz evolution through the entry point, every
+    measurement kept by its cycle's canonical string, and the best
+    individual evaluated once more."""
+    measured = {}
+    evaluate = TorchProgramGenerator.generate_and_evaluate
+
+    def recording(self, expression, *args, **kwargs):
+        result = evaluate(self, expression, *args, **kwargs)
+        measured[canonical_string(expression)] = result
+        return result
+
+    start = time.perf_counter()
+    TorchProgramGenerator.generate_and_evaluate = recording
+    try:
+        result = torch_optimize.run(HELMHOLTZ_EVOLVE_ARGS)
+    finally:
+        TorchProgramGenerator.generate_and_evaluate = evaluate
+    optimizer, generator = result.optimizer, result.generator
+    best = result.halls_of_fame[-1][0]
+    expr = optimizer.compile_individual(best)[0]
+    during = measured.get(canonical_string(expr))
+    again = generator.generate_and_evaluate(
+        expr, evaluation_samples=3, global_variable_values={"k": 20.0})
+    emit({
+        "phase": "helmholtz_evolve", "args": " ".join(HELMHOLTZ_EVOLVE_ARGS[:-2]),
+        "evaluations": optimizer._total_number_of_evaluations,
+        "evolution_s": result.evolution_s, "vm_stats": generator.vm_stats(),
+        "best": {"fitness": list(best.fitness_values),
+                 "during": list(during) if during else None, "reevaluated": list(again)},
+        "phase_s": time.perf_counter() - start,
+    })
+    check_results(failures, "helmholtz_evolve", [again])
+    if not (math.isfinite(best.fitness_values[0]) and best.fitness_values[0] < 1e50):
+        failures.append(f"helmholtz_evolve: best fitness {best.fitness_values}")
+    if during is None or during[2] != again[2] or not again[0] < 1e50:
+        failures.append(f"helmholtz_evolve: the best individual had {during} during the run "
+                        f"and {again} evaluated again")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing was run",
@@ -476,6 +759,10 @@ def main() -> int:
     launches_by_role, generator, champion = phase_main_path(failures)
     evolve_launches = phase_evolve(failures)
     phase_profile(generator, champion)
+    phase_helmholtz(failures)
+    phase_helmholtz_c64(failures)
+    cgs_launches = phase_krylov_cgs(failures)
+    phase_helmholtz_evolve(failures)
     if failures:
         for failure in failures:
             print(f"chip_smoke FAILED: {failure}", file=sys.stderr)
@@ -488,6 +775,8 @@ def main() -> int:
             "launches": launches_by_role[name],
             "evolve_launches": sum(n for shape, n in evolve_launches.items()
                                    if role(shape) == name),
+            "krylov_cgs_launches": sum(n for shape, n in cgs_launches.items()
+                                       if role(shape) == name),
             "max_abs_err": max(e for s in CHECKED if role(s) == name
                                for e in kernel[s]["max_abs_err"].values()),
             "ms": kernel[timed]["ms"], "plain_ms": kernel[timed]["plain_ms"],

@@ -16,19 +16,25 @@ a grammar tree string compiles to the same IR on both sides:
 
 and owns every layer that touches arrays:
 
-    problems/   jax-free Problem and the 2D Poisson family
-    ops/        stencils, transfers, coarse solve, smoothers, and the
-                hand-written CUDA red-black sweep (csrc/rb_sweep.cu)
+    problems/   jax-free Problem, the 2D Poisson family and 2D Helmholtz
+                with its complex shifted-Laplacian preconditioner
+    ops/        stencils, transfers, coarse solve, smoothers, the Krylov
+                solvers (CG, CR, MinRes, BiCGStab, preconditioned
+                BiCGStab) and the hand-written CUDA red-black sweep
+                (csrc/rb_sweep.cu)
     backend/    IR -> eager torch cycle, cycle VM, fitness evaluation
-                (single and same-structure groups)
+                (single and same-structure groups, the outer-Krylov solve
+                and the k-ladder of Helmholtz)
     optimization/optimizer.py, relaxation.py: the evolutionary optimizer
                 and the ω tuners (torch.autograd, CMA-ES)
     interop.py  carries the reference's arrays, VM programs and solve
                 specs across to torch
 
-The entry script is scripts/torch_optimize.py.  Every entry point runs on
+The entry scripts are scripts/torch_optimize.py and
+scripts/torch_evaluate_helmholtz_ladder.py.  Every entry point runs on
 the card (`device="cuda"`) unless the caller asks for the CPU, and takes
-torch.float32 or torch.float64.  TF32 is switched off at import: the
+torch.float32, float64, complex64 or complex128 (the complex dtypes for
+Helmholtz; the CUDA kernel is float32 only, as the reference's).  TF32 is switched off at import: the
 reference pins full-f32 precision on its transfers for the same reason
 (evostencils_tpu/ops/intergrid.py:118-132).
 """
@@ -41,7 +47,12 @@ __version__ = "0.1.0"
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-_NUMPY_DTYPES = {torch.float32: np.dtype(np.float32), torch.float64: np.dtype(np.float64)}
+_NUMPY_DTYPES = {
+    torch.float32: np.dtype(np.float32),
+    torch.float64: np.dtype(np.float64),
+    torch.complex64: np.dtype(np.complex64),
+    torch.complex128: np.dtype(np.complex128),
+}
 
 
 class NotPortedError(Exception):
@@ -59,13 +70,21 @@ class CudaKernelError(Exception):
 
 
 def numpy_dtype(dtype) -> np.dtype:
-    """numpy dtype of a torch or numpy real floating dtype."""
+    """numpy dtype of a torch or numpy floating or complex dtype."""
     if isinstance(dtype, torch.dtype):
         if dtype not in _NUMPY_DTYPES:
-            raise NotPortedError(f"dtype {dtype}: only float32 and float64 are ported")
+            raise NotPortedError(f"dtype {dtype}: not one of {sorted(map(str, _NUMPY_DTYPES))}")
         return _NUMPY_DTYPES[dtype]
     np_dtype = np.dtype(dtype)
     if np_dtype not in _NUMPY_DTYPES.values():
-        raise NotPortedError(f"dtype {np_dtype}: only float32 and float64 are ported")
+        raise NotPortedError(f"dtype {np_dtype}: not one of {sorted(map(str, _NUMPY_DTYPES))}")
     return np_dtype
 
+
+def dtype_is_complex(dtype) -> bool:
+    return numpy_dtype(dtype).kind == "c"
+
+
+def dtype_is_64bit(dtype) -> bool:
+    """True for float64 and complex128."""
+    return numpy_dtype(dtype) in (np.dtype(np.float64), np.dtype(np.complex128))

@@ -1,16 +1,23 @@
 """Fitness evaluation of evolved cycles in torch (counterpart of
-evostencils_tpu/backend/evaluation.py, real dtypes, no outer Krylov solve).
+evostencils_tpu/backend/evaluation.py; real and complex dtypes, with the
+outer Krylov solve and the k-ladder of Helmholtz).
 
 `TorchProgramGenerator` implements the optimizer-facing protocol of the
 reference's `JaxProgramGenerator` and measures the same fitness: ρ, time
-to the 1e-12 residual target and the iteration count, with infinity for
+to the residual target and the iteration count, with infinity for
 failures.
-  * float32: ρ from a power iteration on the error-propagation operator
-    (blocks of 10 cycles, renormalised every cycle, 3 to 8 blocks, a 2 %
-    stopping rule); iterations = ⌈log ε / log ρ⌉; time per cycle from the
-    residual-driven stage solve.
-  * float64: residual-driven stages, restarted from the exact host-f64
-    residual when a stage stalls at its floor.
+  * float32, complex64: ρ from a power iteration on the error-propagation
+    operator (blocks of 10 cycles, renormalised every cycle, 3 to 8
+    blocks, a 2 % stopping rule); iterations = ⌈log ε / log ρ⌉; time per
+    cycle from the residual-driven stage solve.
+  * float64, complex128: residual-driven stages, restarted from the exact
+    host-f64 (complex128) residual when a stage stalls at its floor.
+  * a problem with an `outer_solver` (Helmholtz): the cycle preconditions
+    BiCGStab on the outer operator; the fitness is the outer iteration
+    count to the true target, reached in at most 4 stages that restart
+    from the exact host residual, after a short probe solve that kills
+    hopeless preconditioners.  `global_variable_values={"k": ...}`
+    evaluates the ladder k, 2k, 4k and averages.
 
 `generate_and_evaluate_group` scores same-structure individuals (the
 optimizer's ω-mutation offspring) as the reference's group path does: ρ
@@ -34,11 +41,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from evostencils_torch import NotPortedError, numpy_dtype
+from evostencils_torch import NotPortedError, dtype_is_64bit, dtype_is_complex, numpy_dtype
 from evostencils_torch.backend.lowering import CycleLowering
-from evostencils_torch.backend.vm import Program
-from evostencils_torch.ir import base
+from evostencils_torch.backend.vm import CycleVM, Program
+from evostencils_torch.ir import base, system
 from evostencils_torch.ir.transformations import canonical_string, collect_cycles
+from evostencils_torch.ops import krylov
 from evostencils_torch.ops import stencil_ops as sops
 from evostencils_torch.stencils import periodic
 
@@ -54,6 +62,11 @@ GROUP_SIZE_LIMIT = 16
 _DEVICE_ERRORS = (torch.cuda.OutOfMemoryError,) + (
     (torch.AcceleratorError,) if hasattr(torch, "AcceleratorError") else ()
 )
+
+
+def _host_norm(state) -> float:
+    """Euclidean norm of a host (numpy) state."""
+    return math.sqrt(sum(float(np.sum(np.abs(x) ** 2)) for x in state))
 
 
 class TorchProgramGenerator:
@@ -74,19 +87,29 @@ class TorchProgramGenerator:
         iteration_limit: Optional[int] = None,
         measure_reduction: Optional[float] = None,
         device="cuda",
+        ladder_rungs: int = 3,
     ):
         self.problem = problem
         self.device = torch.device(device)
+        # Rungs of the k-ladder per Helmholtz fitness (k, 2k, 4k).  One
+        # rung during evolution keeps the selection pressure on the base
+        # k; champions are then validated on the full ladder
+        # (scripts/torch_evaluate_helmholtz_ladder.py).
+        self.ladder_rungs = max(1, int(ladder_rungs))
         self.dtype = dtype if dtype is not None else problem.dtype
         self._np_dtype = numpy_dtype(self.dtype)
+        is_f64 = dtype_is_64bit(self.dtype)
+        # Residual norms and rates are real; the host accumulates exact
+        # residuals in float64 or complex128.
+        self._np_real = np.float64 if is_f64 else np.float32
+        self._np_acc = np.complex128 if dtype_is_complex(self.dtype) else np.float64
         self.epsilon = epsilon if epsilon is not None else problem.residual_target
         self.iteration_limit = (
             iteration_limit if iteration_limit is not None else problem.iteration_limit
         )
         if measure_reduction is None:
-            # float64 measures the full target in one stage; float32 in
-            # stage windows of 1e-4, well above its residual floor.
-            is_f64 = self._np_dtype == np.float64
+            # 64-bit dtypes measure the full target in one stage; 32-bit
+            # ones in stage windows of 1e-4, well above their floor.
             measure_reduction = self.epsilon if is_f64 else max(self.epsilon, 1e-4)
         self.measure_reduction = measure_reduction
         self.lowering = CycleLowering(self.dtype, self.device)
@@ -105,6 +128,11 @@ class TorchProgramGenerator:
         # (members of a group that fell back one by one are not counted).
         self.groups = 0
         self.group_members = 0
+        # What the last outer-Krylov evaluation did: the probe's verdict
+        # ("skipped", "killed", "survived": the staged solve went on from its
+        # iterate, or "unused": it reduced nothing), its iterations and the
+        # number of full-cap stages that ran.
+        self.last_outer_solve = None
 
     def vm_stats(self) -> dict:
         total = self.vm_hits + self.vm_misses
@@ -114,11 +142,21 @@ class TorchProgramGenerator:
             "vm_hit_rate": (self.vm_hits / total) if total else None,
         }
 
+    @property
+    def _param_sig(self):
+        """Hashable signature of the PDE parameters: solvers and VMs are
+        kept per value, so a k-ladder that revisits the same k for every
+        individual reuses them."""
+        return tuple(sorted(
+            (k, v) for k, v in self.problem.parameters.items()
+            if isinstance(v, (int, float, complex))
+        ))
+
     def _apply_parameter_values(self, values) -> None:
+        """Switch the problem's PDE parameters; caches stay (keyed by
+        signature)."""
         if any(self.problem.parameters.get(k) != v for k, v in values.items()):
             self.problem = self.problem.with_parameters(values)
-            self._solver_cache.clear()
-            self._vms.clear()
 
     def _device_failed(self):
         """Account one device fault: a lone faulting individual is poisoned,
@@ -208,13 +246,19 @@ class TorchProgramGenerator:
         level = self._expression_level(expression)
         if level - self.problem.min_level + 1 < 2:
             return None, None
-        vm = self._vms.get(level)
-        if vm is None:
-            from evostencils_torch.backend.vm import CycleVM
-
-            vm = CycleVM(self.lowering, self.problem, level)
-            self._vms[level] = vm
+        vm = self._vm_for(level)
         return vm, vm.translate(expression)
+
+    def _vm_for(self, level: int):
+        key = (self._param_sig, level)
+        vm = self._vms.get(key)
+        if vm is None:
+            # Outer-Krylov problems take the reference's slim ISA: block
+            # smoothers fail translation and are lowered from the IR.
+            slim = getattr(self.problem, "outer_solver", None) is not None
+            vm = CycleVM(self.lowering, self.problem, level, include_block_smoothers=not slim)
+            self._vms[key] = vm
+        return vm
 
     def _build_solver(self, expression):
         """((stage, power, operator), omega_arg): the measurement functions
@@ -224,7 +268,7 @@ class TorchProgramGenerator:
         vm, program = self._vm_program(expression)
         if program is not None:
             self.vm_hits += 1
-            key = ("__vm__", self._expression_level(expression))
+            key = ("__vm__", self._param_sig, self._expression_level(expression))
             if key not in self._solver_cache:
                 operator = self._finest_operator_for(expression)
                 self._solver_cache[key] = self._stage_power_fns(vm.make_step(), operator) + (
@@ -233,12 +277,16 @@ class TorchProgramGenerator:
             return self._solver_cache[key], program
         self.vm_misses += 1
         omega_values = self._omega_vector(expression)
-        key = ("solve", canonical_string(expression, parameterize_relaxation=True))
+        key = self._structural_key(expression)
         if key not in self._solver_cache:
             step = self.lowering.lower_parameterized(expression)[0]
             operator = self._finest_operator_for(expression)
             self._solver_cache[key] = self._stage_power_fns(step, operator) + (operator,)
         return self._solver_cache[key], omega_values
+
+    def _structural_key(self, expression, prefix: str = "solve"):
+        return (prefix, self._param_sig,
+                canonical_string(expression, parameterize_relaxation=True))
 
     @staticmethod
     def _omega_vector(expression) -> np.ndarray:
@@ -253,7 +301,7 @@ class TorchProgramGenerator:
         iteration."""
         lowering = self.lowering
         cap = self.iteration_limit
-        np_dt = self._np_dtype.type
+        np_dt = self._np_real
         target = np_dt(self.measure_reduction)
         # Pace rule: surviving poisoning needs ρ ≤ ε^(1/cap); 10× behind
         # that pace after 25 cycles, a stage stops.
@@ -292,14 +340,15 @@ class TorchProgramGenerator:
         def one_block(e, zf, omegas):
             # Renormalise every cycle and accumulate log-norms: a block
             # rate of ρ^10 underflows f32 for very fast cycles.
-            log_acc = torch.zeros((), dtype=lowering.dtype, device=lowering.device)
-            tiny = torch.finfo(lowering.dtype).tiny
+            log_acc = None
             for _ in range(block_len):
                 e = step(e, zf, omegas)
                 n = sops.l2_norm(e)
+                tiny = torch.finfo(n.dtype).tiny
                 safe = torch.where(n > 0, n, 1.0)
                 e = tuple(x / safe for x in e)
-                log_acc = log_acc + torch.log(torch.where(n > 0, n, tiny))
+                log_n = torch.log(torch.where(n > 0, n, tiny))
+                log_acc = log_n if log_acc is None else log_acc + log_n
             return e, np_dt(torch.exp(log_acc / block_len).item())
 
         def power(e0, zf, omegas):
@@ -328,19 +377,30 @@ class TorchProgramGenerator:
             seed += 1009 * int(self.init_seed)
         return seed
 
-    def _timed_stage(self, stage, u0, f, omegas) -> float:
-        """Seconds one stage solve takes on the device."""
+    def _timed(self, solve, *args) -> float:
+        """Seconds one solve(*args) takes on the device: a CUDA-event span
+        on a GPU, which ends when the device has finished."""
         if self.device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            stage(u0, f, omegas)
+            solve(*args)
             end.record()
             end.synchronize()
             return start.elapsed_time(end) / 1e3
         t0 = time.perf_counter()
-        stage(u0, f, omegas)
+        solve(*args)
         return time.perf_counter() - t0
+
+    def _median_time(self, solve, args, evaluation_samples) -> float:
+        """Median seconds of solve(*args) over `evaluation_samples` runs."""
+        times = sorted(self._timed(solve, *args) for _ in range(max(1, evaluation_samples)))
+        self.run_time_total += sum(times)
+        return times[len(times) // 2]
+
+    def _to_host(self, state):
+        """A device state in the host accumulation dtype."""
+        return tuple(x.cpu().numpy().astype(self._np_acc) for x in state)
 
     def _to_device(self, host_state):
         return tuple(
@@ -383,12 +443,7 @@ class TorchProgramGenerator:
         """Median time of the stage solve over `evaluation_samples` runs,
         per cycle its first run executed."""
         executed = max(1, stage_solve(u0, f, omegas)[4])
-        times = sorted(
-            self._timed_stage(stage_solve, u0, f, omegas)
-            for _ in range(max(1, evaluation_samples))
-        )
-        self.run_time_total += sum(times)
-        return 1e3 * times[len(times) // 2] / executed
+        return 1e3 * self._median_time(stage_solve, (u0, f, omegas), evaluation_samples) / executed
 
     # ---- core evaluation ----
 
@@ -404,24 +459,57 @@ class TorchProgramGenerator:
         global_variable_values=None,
     ):
         """Returns (time_to_convergence_ms, convergence_factor, iterations)."""
-        if getattr(self.problem, "outer_solver", None):
-            raise NotPortedError("outer-Krylov (Helmholtz) evaluation")
         if self.uses_FAS():
             raise NotPortedError("FAS evaluation")
         if global_variable_values:
             self._apply_parameter_values(global_variable_values)
+            if "k" in global_variable_values and getattr(self.problem, "outer_solver", None):
+                # The Helmholtz protocol: every individual across the
+                # k-ladder k, 2k, 4k.
+                return self._evaluate_k_ladder(expression, infinity, evaluation_samples)
+        return self._generate_and_evaluate_measured(expression, infinity, evaluation_samples)
+
+    def _evaluate_k_ladder(self, expression, infinity, evaluation_samples):
+        """k, 2k, 4k with the reference's combination rule: the mean over
+        the rungs; on a failing rung the sums so far, at once, which keeps
+        failures ordered behind successes.  The base k is restored."""
+        base_k = self.problem.parameters["k"]
+        rungs = self.ladder_rungs
+        total_t = total_rho = total_it = 0.0
         try:
-            return self._generate_and_evaluate_measured(expression, infinity, evaluation_samples)
+            for i in range(rungs):
+                t, rho, it = self._generate_and_evaluate_measured(
+                    expression, infinity, evaluation_samples)
+                total_t += t
+                total_rho += rho
+                total_it += it
+                if not math.isfinite(t) or t >= infinity or rho > 1:
+                    return total_t, total_rho, total_it
+                if i < rungs - 1:
+                    self._apply_parameter_values({"k": self.problem.parameters["k"] * 2.0})
+        finally:
+            self._apply_parameter_values({"k": base_k})
+        return total_t / rungs, total_rho / rungs, total_it / rungs
+
+    def _generate_and_evaluate_measured(self, expression, infinity, evaluation_samples):
+        """One measurement at the current parameters; a device fault
+        poisons this individual (a run of them aborts)."""
+        if getattr(self.problem, "outer_solver", None):
+            evaluate = self._generate_and_evaluate_outer
+        else:
+            evaluate = self._generate_and_evaluate_cycle
+        try:
+            return evaluate(expression, infinity, evaluation_samples)
         except _DEVICE_ERRORS:
             self._device_failed()
             return infinity, infinity, infinity
 
-    def _generate_and_evaluate_measured(self, expression, infinity, evaluation_samples):
+    def _generate_and_evaluate_cycle(self, expression, infinity, evaluation_samples):
         try:
             (stage_solve, power_solve, operator), omegas = self._build_solver(expression)
             u0, f, e0, zf = self._probe_state(expression)
 
-            if self._np_dtype == np.float32:
+            if not dtype_is_64bit(self.dtype):
                 # ρ by power iteration on the error-propagation operator.
                 rate, _ = power_solve(e0, zf, omegas)
                 self._consecutive_device_failures = 0
@@ -433,7 +521,7 @@ class TorchProgramGenerator:
                 return iterations * t_iter_ms, rho, iterations
 
             # Restarted measurement: when a stage stalls at its residual
-            # floor before the target, the exact float64 host residual is
+            # floor before the target, the exact 64-bit host residual is
             # the next stage's right-hand side (the error equation), so
             # stage reductions multiply.  Any other exit ends it.
             log_eps = math.log(self.epsilon)
@@ -462,10 +550,7 @@ class TorchProgramGenerator:
                     break
                 try:
                     r64 = self._host_residual(
-                        operator,
-                        tuple(x.cpu().numpy().astype(np.float64) for x in best_u),
-                        tuple(x.cpu().numpy().astype(np.float64) for x in rhs),
-                    )
+                        operator, self._to_host(best_u), self._to_host(rhs))
                 except NotImplementedError:
                     break
                 rhs = self._to_device(r64)
@@ -485,14 +570,218 @@ class TorchProgramGenerator:
         if iterations > self.iteration_limit:
             # Cap breach: time poisoned, ρ and the extrapolated count kept.
             return infinity, rho, iterations
-        times = sorted(
-            self._timed_stage(stage_solve, u0, f, omegas)
-            for _ in range(max(1, evaluation_samples))
-        )
-        self.run_time_total += sum(times)
         # Normalised by the executed iterations of the first stage.
-        t_iter_ms = 1e3 * times[len(times) // 2] / stage1_executed
+        t_iter_ms = 1e3 * self._median_time(
+            stage_solve, (u0, f, omegas), evaluation_samples) / stage1_executed
         return iterations * t_iter_ms, rho, iterations
+
+    # ---- outer-Krylov (Helmholtz) evaluation ----
+
+    def _outer_operator_for(self, expression):
+        grids = expression.grid if isinstance(expression.grid, list) else [expression.grid]
+        factory = self.problem.outer_solver["operator_factory"]
+        outer_entry = base.Operator(
+            "A_outer", grids[0],
+            factory(self._expression_level(expression), self.problem.parameters),
+        )
+        return system.Operator("A_outer", [[outer_entry]])
+
+    def _outer_solve_raw(self, step, outer_operator, max_iterations):
+        """solve(f, omegas) -> (x, res, res0, iterations): BiCGStab on the
+        outer operator from a zero guess, one cycle on (0, ·) as the
+        preconditioner."""
+        lowering = self.lowering
+        target = self.problem.outer_solver["target_reduction"]
+        if not dtype_is_64bit(self.dtype):
+            # Per-stage device target: in float32/complex64 the residual
+            # recurrence floors near 1e-6 to 1e-7 relative, so each stage
+            # solves to 1e-6 and _generate_and_evaluate_outer restarts from
+            # the exact host residual until the true target is met.
+            target = max(target, 1e-6)
+
+        def apply_a(state):
+            return lowering.system_apply(outer_operator, state)
+
+        def solve(f, omegas):
+            def apply_m(state):
+                return step(sops.zeros_like_state(state), state, omegas)
+
+            x, it, res = krylov.preconditioned_bicgstab(
+                apply_a, apply_m, f, max_iterations, target)
+            return x, res, float(sops.l2_norm(f)), it
+
+        return solve
+
+    def _build_outer_solver(self, expression, probe_iterations=None):
+        """((solve, outer_operator), omega_arg): the cycle as the
+        preconditioner of BiCGStab on the outer operator, through the cycle
+        VM when the cycle translates, else lowered from the IR.
+        `probe_iterations` gives the short-capped variant of the
+        prescreen, which counts as neither VM hit nor miss."""
+        tag = "outer" if probe_iterations is None else f"outer_probe_{probe_iterations}"
+        max_iterations = (
+            self.problem.outer_solver["max_iterations"]
+            if probe_iterations is None else probe_iterations
+        )
+        vm, program = self._vm_program(expression)
+        if program is not None:
+            if probe_iterations is None:
+                self.vm_hits += 1
+            key = ("__vm__", self._param_sig, self._expression_level(expression), tag)
+            omega_arg, make_step = program, vm.make_step
+        else:
+            if probe_iterations is None:
+                self.vm_misses += 1
+            key = self._structural_key(expression, tag)
+            omega_arg = self._omega_vector(expression)
+
+            def make_step():
+                return self.lowering.lower_parameterized(expression)[0]
+
+        if key not in self._solver_cache:
+            outer_operator = self._outer_operator_for(expression)
+            self._solver_cache[key] = (
+                self._outer_solve_raw(make_step(), outer_operator, max_iterations),
+                outer_operator,
+            )
+        return self._solver_cache[key], omega_arg
+
+    def _generate_and_evaluate_outer(self, expression, infinity, evaluation_samples):
+        """Outer-Krylov evaluation with restarts from the exact residual.
+
+        The device runs preconditioned BiCGStab stages to the stage target
+        (1e-6 in 32-bit arithmetic); between stages the exact residual,
+        complex128 or float64 on the host, becomes the next right-hand
+        side (the error equation), so stage reductions compound to the
+        spec's true target.  ρ = overall contraction^(1/total iterations);
+        the timed first stage extrapolates to the executed total."""
+        report = self.last_outer_solve = {"probe": "skipped", "probe_iterations": 0, "stages": 0}
+        try:
+            spec = self.problem.outer_solver
+            true_target = spec["target_reduction"]
+            max_iterations = spec["max_iterations"]
+            u0_host, f_host = self.problem.initial_state(
+                self.dtype, level=self._expression_level(expression), rhs_seed=self.rhs_seed)
+            f64 = tuple(np.asarray(x, self._np_acc) for x in f_host)
+            res0_true = _host_norm(f64)
+            if res0_true <= 0.0:
+                return infinity, infinity, infinity
+
+            # Short-horizon prescreen: a probe-capped outer solve, its
+            # contraction rate projected to the true target.  A hopeless
+            # preconditioner dies after `probe` iterations instead of the
+            # full cap, with a projected count that keeps failures ordered.
+            # Only for cycles the VM translates, as in the reference.
+            probe_seed = None
+            probe = spec.get("probe_iterations", 128)
+            if (
+                probe
+                and self.init_seed is None
+                and max_iterations > 4 * probe
+                and self._vm_program(expression)[1] is not None
+            ):
+                (probe_solve, probe_operator), probe_omegas = self._build_outer_solver(
+                    expression, probe_iterations=probe)
+                p_x, p_res, p_res0, p_it = probe_solve(self._to_device(f64), probe_omegas)
+                self._consecutive_device_failures = 0
+                report.update(probe="killed", probe_iterations=p_it)
+                if p_it == 0 or not math.isfinite(p_res) or p_res0 <= 0.0:
+                    return infinity, infinity, infinity
+                # p_res == 0.0 exactly is machine-zero convergence: the
+                # best possible probe outcome, never a kill.
+                if p_it >= probe and p_res > 0.0:
+                    # Did not converge within the probe cap.
+                    p_rate = (p_res / p_res0) ** (1.0 / p_it)
+                    if p_rate >= 1.0:
+                        return infinity, p_rate, max_iterations
+                    projected = math.log(true_target) / math.log(p_rate)
+                    # 2× slack: BiCGStab is non-monotone, a slow probe can
+                    # still accelerate; only clearly infeasible runs die.
+                    if projected > 2.0 * max_iterations:
+                        return infinity, p_rate, int(min(projected, 10 * max_iterations))
+                report["probe"] = "unused"
+                if p_res < p_res0:
+                    # The survivor's probe iterations are real work: they
+                    # seed the staged solve.
+                    report["probe"] = "survived"
+                    probe_seed = (self._to_host(p_x), probe_operator, p_it)
+
+            (solve, outer_operator), omegas = self._build_outer_solver(expression)
+
+            x_total = tuple(np.zeros(np.asarray(x).shape, self._np_acc) for x in u0_host)
+            rhs_host = f64
+            total_it = 0
+            it1 = None
+            rel = 1.0
+            if probe_seed is not None:
+                x_probe, probe_operator, p_it_seed = probe_seed
+                r_probe = self._host_residual(probe_operator, x_probe, f64)
+                seeded_rel = _host_norm(r_probe) / res0_true
+                if math.isfinite(seeded_rel) and seeded_rel < rel:
+                    x_total, rhs_host, total_it, rel = x_probe, r_probe, p_it_seed, seeded_rel
+
+            if self.init_seed is not None:
+                # Seeded-initial-guess protocol: A·x = f from a random x0,
+                # as the staged solve of the error equation A·e = f − A·x0
+                # (the device stage guesses stay zero).
+                rng0 = np.random.default_rng(int(self.init_seed))
+                x_rand = tuple(
+                    rng0.standard_normal(np.asarray(x).shape).astype(self._np_acc)
+                    for x in u0_host
+                )
+                r0 = tuple(self._host_residual(outer_operator, x_rand, f64))
+                res0_init = _host_norm(r0)
+                if res0_init > 0.0 and math.isfinite(res0_init):
+                    x_total, rhs_host, res0_true, total_it, rel = x_rand, r0, res0_init, 0, 1.0
+
+            for _stage in range(4):
+                if rel <= true_target:
+                    break
+                x, res, res0s, it = solve(self._to_device(rhs_host), omegas)
+                report["stages"] += 1
+                self._consecutive_device_failures = 0
+                if it == 0 or not math.isfinite(res) or res0s <= 0.0:
+                    return infinity, infinity, infinity
+                if it1 is None:
+                    it1 = it
+                    # The first stage's own contraction stays informative
+                    # for diverged runs (res/res0 > 1 varies between
+                    # individuals), unlike the host rel, which clamps at 1.
+                    stage1_rho = (res / res0s) ** (1.0 / it) if res > 0.0 else infinity
+                total_it += it
+                x_total = tuple(a + b for a, b in zip(x_total, self._to_host(x)))
+                r_host = self._host_residual(outer_operator, x_total, f64)
+                new_rel = _host_norm(r_host) / res0_true
+                if new_rel <= true_target:
+                    rel = new_rel
+                    break
+                if total_it >= max_iterations or new_rel >= rel:
+                    # Cap breach, or the restart no longer improves.
+                    rel = min(rel, new_rel)
+                    rho = max(rel ** (1.0 / total_it), stage1_rho)
+                    return infinity, rho if math.isfinite(rho) else infinity, total_it
+                rel = new_rel
+                rhs_host = r_host
+        except _DEVICE_ERRORS:
+            raise
+        except (RuntimeError, ValueError, NotImplementedError, FloatingPointError):
+            return infinity, infinity, infinity
+
+        if rel > true_target:
+            return infinity, rel ** (1.0 / max(total_it, 1)), total_it
+        rho = rel ** (1.0 / total_it)
+        if it1 is None:
+            # The probe seed alone met the target and no staged solve ran;
+            # the timed solve below runs to the same target itself.
+            it1 = total_it
+        # Timing: the median first stage, extrapolated to the executed
+        # total (the cost per iteration does not depend on the stage).
+        try:
+            seconds = self._median_time(solve, (self._to_device(f64), omegas), evaluation_samples)
+        except _DEVICE_ERRORS:
+            self._device_failed()
+            return infinity, rho, total_it
+        return 1e3 * seconds * (total_it / max(it1, 1)), rho, total_it
 
     def generate_and_evaluate_group(
         self, expressions, infinity=1e100, evaluation_samples=3,
@@ -521,16 +810,16 @@ class TorchProgramGenerator:
                 for e in expressions
             ]
 
-        # The float64 measurement has no power iteration to share.
+        # The 64-bit measurement has no power iteration to share.
         if (getattr(self.problem, "outer_solver", None) or self.uses_FAS()
-                or self._np_dtype != np.float32):
+                or dtype_is_64bit(self.dtype)):
             return one_by_one()
         try:
             (stage_solve, power_solve, _), omega_arg0 = self._build_solver(expressions[0])
             if isinstance(omega_arg0, Program):
                 # Same-structure programs share opcodes; each member brings
                 # its own ω.
-                vm = self._vms[self._expression_level(expressions[0])]
+                vm = self._vm_for(self._expression_level(expressions[0]))
                 omega_args = []
                 for e in expressions:
                     program = vm.translate(e)
@@ -582,10 +871,13 @@ class TorchProgramGenerator:
         return rho, t / iterations
 
     def _host_residual(self, operator, u_fields, f_fields):
-        """Exact float64 residual f − A·u on the host."""
+        """Exact residual f − A·u on the host, in float64 (complex128 for
+        complex fields)."""
         out = []
         for i, row in enumerate(operator.entries):
-            acc = np.array(f_fields[i], dtype=np.float64)
+            acc = np.array(
+                f_fields[i],
+                dtype=np.complex128 if np.iscomplexobj(f_fields[i]) else np.float64)
             for entry, u in zip(row, u_fields):
                 if isinstance(entry, base.ZeroOperator):
                     continue
@@ -602,6 +894,6 @@ class TorchProgramGenerator:
                         # measurement ends after this stage.
                         raise NotImplementedError("host residual: periodic entry")
                     stencil = stencil.as_constant()
-                acc -= sops.numpy_apply_constant_stencil(np.asarray(u, np.float64), stencil)
+                acc -= sops.numpy_apply_constant_stencil(np.asarray(u, acc.dtype), stencil)
             out.append(acc)
         return out

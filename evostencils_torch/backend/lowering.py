@@ -17,28 +17,33 @@ as in the reference:
     per-point n_fields×n_fields solve, block-diagonal system.Operator →
     batched local dense solves.
   * CoarseGridSolver without an expression: precomputed dense inverse;
-    with an evolved cycle of an earlier run (`apply_as_solver`, multi-run
+    with a Krylov method: that many iterations of ops/krylov.py; with an
+    evolved cycle of an earlier run (`apply_as_solver`, multi-run
     level splitting): that cycle once on (0, r).
 
-Nonlinear (FAS) operators, Krylov coarse solves and variable coefficients
-raise NotPortedError.  The reference's
+A complex dtype (Helmholtz) keeps the complex centre coefficients and
+inverses and takes the masked half-sweeps for red-black smoothing: the
+fused sweep is float32 only, as the reference's Pallas gate.  Nonlinear
+(FAS) operators and variable coefficients raise NotPortedError.  The
+reference's
 `lax.scan` smoothing chains exist to cut XLA compile time; eager torch
 applies the same smoothing steps one after another.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from evostencils_torch import NotPortedError
+from evostencils_torch import NotPortedError, dtype_is_complex
 from evostencils_torch.ir import base, system
 from evostencils_torch.ir import partitioning as part
 from evostencils_torch.ir.krylov import KrylovSubspaceMethod
 from evostencils_torch.ir.transformations import canonical_string, collect_cycles
-from evostencils_torch.ops import coarse_solve, intergrid, rb_sweep, smoothers
+from evostencils_torch.ops import coarse_solve, intergrid, krylov, rb_sweep, smoothers
 from evostencils_torch.ops import stencil_ops as sops
 from evostencils_torch.stencils import periodic
 
@@ -160,12 +165,15 @@ class CycleLowering:
                     stencil = _constant_stencil(entry)
                     if stencil is not None:
                         mat[i, j] = stencil.center_value()
-            self._center_inv_cache[key] = np.real(np.linalg.inv(mat))
+            inv = np.linalg.inv(mat)
+            if not dtype_is_complex(self.dtype):
+                inv = np.real(inv)
+            self._center_inv_cache[key] = inv
         return self._center_inv_cache[key]
 
     def _diagonal_inverses(self, operator: system.Operator):
         return [
-            1.0 / _constant_stencil(row[i]).center_value()
+            sops.scalar(1.0 / _constant_stencil(row[i]).center_value())
             for i, row in enumerate(operator.entries)
         ]
 
@@ -238,7 +246,8 @@ class CycleLowering:
         if expr is None:
             return self._dense_spec(solver.operator).apply(r_state)
         if isinstance(expr, KrylovSubspaceMethod):
-            raise NotPortedError(f"Krylov coarse-grid solver {expr.name}")
+            apply_a = partial(self.system_apply, expr.operator)
+            return krylov.SOLVERS[expr.name](apply_a, tuple(r_state), expr.number_of_iterations)
         if hasattr(expr, "apply_as_solver"):
             # Nested evolved cycle from a previous optimization run
             # (multi-run level splitting): run it once on (0, r).
@@ -316,7 +325,9 @@ class CycleLowering:
             if isinstance(op1, base.CoarseGridSolver):
                 return self.cgs_apply(op1, ev(node.operand2))
             if isinstance(op1, KrylovSubspaceMethod):
-                raise NotPortedError(f"Krylov solver {op1.name}")
+                apply_a = partial(self.system_apply, op1.operator)
+                return krylov.SOLVERS[op1.name](
+                    apply_a, ev(node.operand2), op1.number_of_iterations)
             if isinstance(op1, system.InterGridOperator):
                 return self.intergrid_apply(op1, ev(node.operand2))
             if isinstance(op1, system.Operator):

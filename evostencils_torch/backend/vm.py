@@ -12,7 +12,7 @@ ISA (branches are enumerated per level with the operators baked in):
     NOP
     SMOOTH[B, partitioning, level](ω)   u_l += ω·P·B⁻¹(f_l − A_l·u_l)
     RESTRICT[R, A, level]               f_{l+1} = R(f_l − A_l·u_l); u_{l+1} = 0
-    CGS[solver, level]                  u_l = A_l⁻¹ f_l
+    CGS[solver, level]                  u_l = A_l⁻¹ f_l  (dense / Krylov / nested)
     PROLONG[P, level](ω)                u_l += ω·P·u_{l+1}
 
 Registration and translation are the reference's, so both VMs number the
@@ -20,6 +20,12 @@ same branches alike.  The reference runs the program inside one compiled
 `lax.switch` interpreter to avoid XLA compiles; eager torch has none, so
 `make_step` is a Python loop over the branches, and programs need no
 padding.  ω stays float32 as in the reference, so it is rounded alike.
+
+`include_block_smoothers=False` is the reference's slim ISA, which it
+builds for outer-Krylov (Helmholtz) problems to keep its compiled
+interpreter small.  Nothing is compiled here, but the rule decides which
+individuals translate, and only those are probed before the outer solve
+(backend/evaluation.py), so the fitness depends on it and the port keeps it.
 """
 
 from __future__ import annotations
@@ -52,9 +58,11 @@ def _replace(t: tuple, i: int, v):
 class CycleVM:
     """Interpreter for one problem hierarchy (finest level fixed)."""
 
-    def __init__(self, lowering, problem, finest_level: int):
+    def __init__(self, lowering, problem, finest_level: int,
+                 include_block_smoothers: bool = True):
         self.lowering = lowering
         self.problem = problem
+        self.include_block_smoothers = include_block_smoothers
         self.finest_level = finest_level
         self.n_levels = finest_level - problem.min_level + 1
         # Per-level interior shapes, one per field (0 = finest).
@@ -99,6 +107,8 @@ class CycleVM:
             kind = "single"
         else:
             raise _NotTranslatable(f"partitioning {partitioning!r}")
+        if not self.include_block_smoothers and isinstance(B, system.Operator):
+            raise _NotTranslatable("block smoother outside the slim ISA")
         key = ("smooth", level, kind, canonical_string(B))
         lowering = self.lowering
 
@@ -172,7 +182,7 @@ class CycleVM:
         scalar = len(problem.fields) == 1
         max_block = 8
         block_shapes = []
-        if scalar:
+        if scalar and self.include_block_smoothers:
             for shape in itertools.product(range(1, max_block + 1), repeat=problem.dimension):
                 if 1 < int(np.prod(shape)) <= max_block:
                     block_shapes.append((shape,))

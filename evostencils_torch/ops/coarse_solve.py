@@ -3,8 +3,9 @@ evostencils_tpu/ops/coarse_solve.py).
 
 The coarse system matrix is assembled and inverted with numpy once, at
 lowering time; at run time the solve is one `torch.matmul` (a 961×961
-matvec at level 5).  That product is a library call, as the reference left
-it to XLA.
+matvec at level 5, a 49×49 complex one at level 3 of Helmholtz).  That
+product is a library call, as the reference left it to XLA.  The inverse
+stays complex for a complex solver dtype and is cast to real otherwise.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from evostencils_torch import numpy_dtype
+from evostencils_torch import dtype_is_complex, numpy_dtype
 from evostencils_torch.stencils import periodic
 
 
@@ -81,4 +82,7 @@ def build_dense_solve_spec(entry_matrices, field_shapes, dtype, device) -> Dense
                 A[row0:row0 + sizes[i], col0:col0 + sizes[j]] = block
             col0 += sizes[j]
         row0 += sizes[i]
-    return DenseSolveSpec(np.real(np.linalg.inv(A)), field_shapes, dtype, device)
+    inv = np.linalg.inv(A)
+    if not dtype_is_complex(dtype):
+        inv = np.real(inv)
+    return DenseSolveSpec(inv, field_shapes, dtype, device)

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from evostencils_torch import numpy_dtype
+from evostencils_torch import dtype_is_complex, numpy_dtype
 from evostencils_torch.ops.stencil_ops import scalar
 from evostencils_torch.stencils import periodic
 
@@ -246,4 +246,7 @@ def build_block_solve_spec(
     for row in range(n):
         if not np.any(L[row, :]):
             L[row, row] = 1.0
-    return BlockSolveSpec(period, n_fields, np.real(np.linalg.inv(L)), dtype, device)
+    inv_l = np.linalg.inv(L)
+    if not dtype_is_complex(dtype):
+        inv_l = np.real(inv_l)
+    return BlockSolveSpec(period, n_fields, inv_l, dtype, device)

@@ -22,7 +22,9 @@ from evostencils_torch.stencils import constant, periodic
 
 def scalar(value):
     """A stencil or matrix coefficient as a Python number: torch then
-    keeps the field's dtype, as the reference's weak-typed scalars do."""
+    keeps the field's precision, as the reference's weak-typed scalars do
+    (a Python complex times a complex64 tensor stays complex64; times a
+    real tensor it promotes to the complex dtype of the same width)."""
     value = complex(value)
     return value.real if value.imag == 0.0 else value
 
@@ -116,18 +118,20 @@ def numpy_apply_constant_stencil(u: np.ndarray, stencil: constant.Stencil) -> np
 
 
 def l2_norm(fields: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Euclidean norm over all fields of a system state (0-dim tensor)."""
+    """Euclidean norm over all fields of a system state (0-dim real
+    tensor; Σ real(f·conj f) for complex fields)."""
     acc = None
     for f in fields:
-        s = torch.sum(f * f)
+        s = torch.sum(torch.real(f * torch.conj(f))) if f.is_complex() else torch.sum(f * f)
         acc = s if acc is None else acc + s
     return torch.sqrt(acc)
 
 
 def dot(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Σ conj(x)·y over all fields: the conjugate is on the first argument."""
     acc = None
     for x, y in zip(a, b):
-        s = torch.sum(x * y)
+        s = torch.sum(torch.conj(x) * y) if x.is_complex() else torch.sum(x * y)
         acc = s if acc is None else acc + s
     return acc
 
@@ -143,3 +147,6 @@ def tree_sub(a, b):
 def tree_scale(factor, a):
     return tuple(factor * x for x in a)
 
+
+def zeros_like_state(state):
+    return tuple(torch.zeros_like(x) for x in state)

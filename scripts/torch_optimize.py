@@ -2,9 +2,11 @@
 """Evolve multigrid solvers with the PyTorch/CUDA port (the counterpart of
 scripts/optimize.py).
 
-Runs grammar-guided genetic programming for 2D Poisson through
-evostencils_torch on the GPU, every fitness evaluation on the card with the
-hand-written red-black sweep kernel, and writes the reference's artifacts:
+Runs genetic programming over the multigrid grammar for 2D Poisson or 2D
+Helmholtz through evostencils_torch on the GPU, every fitness evaluation on the card
+(float32 Poisson with the hand-written red-black sweep kernel; Helmholtz in
+a complex dtype, the evolved cycle preconditioning BiCGStab), and writes
+the reference's artifacts:
 `individual_j.txt` (hall of fame as grammar strings), `program.txt`,
 `logbooks.p`, `populations.p` and, with --tune, `individual_0_tuned.txt` or
 `individual_0_tune_rejected.txt`.  Checkpoints pickle evostencils_torch
@@ -15,11 +17,13 @@ Examples:
       --mu 8 --lambda 8 --generations 50
   python3 scripts/torch_optimize.py --cpu --min-level 3 --max-level 5 \\
       --mu 4 --lambda 4 --generations 2 --dtype float64
+  python3 scripts/torch_optimize.py --problem helmholtz --helmholtz-k0 20 \\
+      --min-level 3 --max-level 5 --dtype complex128 --method sogp \\
+      --ladder-rungs 1 --outer-cap 500 --mu 8 --lambda 8 --generations 10
 
 Without CUDA it stops unless --cpu is given.  Not ported yet (flags of
 scripts/optimize.py left out): --model-based, --problem-file, --knowledge,
---helmholtz-k0, --outer-cap, --ladder-rungs, --no-outer, --mesh and
---multihost.
+--mesh and --multihost.
 """
 
 import argparse
@@ -39,6 +43,7 @@ from evostencils_torch.backend.lowering import CycleLowering
 from evostencils_torch.grammar import gp
 from evostencils_torch.optimization.optimizer import Optimizer
 from evostencils_torch.problems import build_named_problem
+from evostencils_torch.problems.helmholtz import helmholtz_2d, helmholtz_ladder, max_level_for_k
 
 
 class Run(NamedTuple):
@@ -56,15 +61,17 @@ class Run(NamedTuple):
 def parse_arguments(argv=None):
     parser = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    parser.add_argument("--problem", default="poisson2d", choices=["poisson2d"])
+    parser.add_argument("--problem", default="poisson2d", choices=["poisson2d", "helmholtz"])
     parser.add_argument("--method", default="nsga2",
                         choices=["nsga2", "nsga3", "sogp", "random"])
     parser.add_argument("--mu", type=int, default=8)
     parser.add_argument("--lambda", dest="lambda_", type=int, default=8)
     parser.add_argument("--generations", type=int, default=50)
     parser.add_argument("--generalization-interval", type=int, default=150)
-    parser.add_argument("--min-level", type=int, default=5)
-    parser.add_argument("--max-level", type=int, default=9)
+    parser.add_argument("--min-level", type=int, default=None,
+                        help="default 5 (helmholtz: 3)")
+    parser.add_argument("--max-level", type=int, default=None,
+                        help="default 9 (helmholtz: the level with h·k ≈ 0.625)")
     parser.add_argument("--levels-per-run", type=int, default=None)
     parser.add_argument("--evaluation-samples", type=int, default=3)
     parser.add_argument("--crossover-probability", type=float, default=0.7)
@@ -88,11 +95,51 @@ def parse_arguments(argv=None):
     parser.add_argument("--output", default=None, help="result directory")
     parser.add_argument("--cpu", action="store_true",
                         help="evaluate on the CPU instead of the GPU")
-    parser.add_argument("--dtype", default="float32", choices=["float32", "float64"])
+    parser.add_argument("--dtype", default=None,
+                        choices=["float32", "float64", "complex64", "complex128"],
+                        help="default: the problem's (float32; helmholtz complex64)")
+    parser.add_argument("--helmholtz-k0", type=float, default=80.0,
+                        help="base wavenumber for --problem helmholtz; the "
+                             "generalization ramp doubles it per step with "
+                             "h·k fixed")
+    parser.add_argument("--outer-cap", type=int, default=None,
+                        help="override the outer Krylov iteration cap during "
+                             "evolution; validate champions at the full cap "
+                             "with scripts/torch_evaluate_helmholtz_ladder.py")
+    parser.add_argument("--ladder-rungs", type=int, default=3,
+                        help="k-ladder rungs per Helmholtz fitness (3 = k, 2k, "
+                             "4k); 1 during evolution keeps the selection "
+                             "pressure on the base k")
+    parser.add_argument("--no-outer", action="store_true",
+                        help="strip the problem's outer Krylov solve and "
+                             "evolve on the inner (preconditioner) system")
     args = parser.parse_args(argv)
     if not args.cpu and not torch.cuda.is_available():
         parser.error("no CUDA device: run on a GPU, or pass --cpu")
     return args
+
+
+def _build_problem(args):
+    """The problem the flags describe (scripts/optimize.py:135-166)."""
+    if args.problem == "helmholtz":
+        max_level = (args.max_level if args.max_level is not None
+                     else max_level_for_k(args.helmholtz_k0))
+        problem = helmholtz_2d(
+            min_level=args.min_level if args.min_level is not None else 3,
+            max_level=max_level, k=args.helmholtz_k0)
+    else:
+        problem = build_named_problem(
+            args.problem,
+            args.min_level if args.min_level is not None else 5,
+            args.max_level if args.max_level is not None else 9)
+    if args.no_outer and problem.outer_solver:
+        problem = problem._clone(outer_solver=None)
+    elif args.outer_cap and problem.outer_solver:
+        problem = problem._clone(
+            outer_solver=dict(problem.outer_solver, max_iterations=args.outer_cap))
+    if args.dtype:
+        problem = problem._clone(dtype=getattr(torch, args.dtype))
+    return problem
 
 
 def _seed_individuals(args, problem):
@@ -173,12 +220,12 @@ def _tune(output_dir, optimizer, generator, best):
 def run(argv=None) -> Run:
     """Parse `argv`, evolve, write the artifacts and, with --tune, tune."""
     args = parse_arguments(argv)
-    problem = build_named_problem(args.problem, args.min_level, args.max_level)
-    problem = problem._clone(dtype=getattr(torch, args.dtype))
+    problem = _build_problem(args)
     output_dir = args.output or f"results_{problem.name}_torch"
     os.makedirs(output_dir, exist_ok=True)
 
-    generator = TorchProgramGenerator(problem, device="cpu" if args.cpu else "cuda")
+    generator = TorchProgramGenerator(
+        problem, device="cpu" if args.cpu else "cuda", ladder_rungs=args.ladder_rungs)
     optimizer = Optimizer.for_problem(
         problem,
         program_generator=generator,
@@ -191,6 +238,9 @@ def run(argv=None) -> Run:
         "sogp": optimizer.SOGP,
     }.get(args.method, optimizer.NSGAII)
     seed_individuals = _seed_individuals(args, problem)
+    pde_parameter_values = {}
+    if args.problem == "helmholtz":
+        pde_parameter_values = {"k": [k for k, _ in helmholtz_ladder(4, k0=args.helmholtz_k0)]}
 
     start = time.perf_counter()
     best, program, pops, logbooks, hofs = optimizer.evolutionary_optimization(
@@ -206,6 +256,7 @@ def run(argv=None) -> Run:
         evaluation_samples=args.evaluation_samples,
         continue_from_checkpoint=args.continue_from_checkpoint,
         maximum_local_system_size=args.max_local_system_size,
+        pde_parameter_values=pde_parameter_values,
         seed_individuals=seed_individuals or None,
         verbose=True,
     )

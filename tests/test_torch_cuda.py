@@ -1,22 +1,34 @@
-"""The CUDA kernel against its plain torch version, on a card.
+"""The CUDA kernel against its plain torch version, and the Krylov solvers
+and a Helmholtz evaluation on the card against the same on the CPU.
 
 These tests need an NVIDIA GPU (sm_90a) and skip without one.  The file
 imports nothing of JAX, so it runs on the machine with the card, where
 JAX is not installed (tests/conftest.py imports JAX, hence --noconftest):
 
-    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+    python -m pytest --noconftest -m "cuda and not slow" tests/test_torch_cuda.py -q
+
+One test is also marked slow (two solves of thousands of outer iterations,
+about 35 s each on an H100): run it with -m "cuda and slow" -s.
 """
+
+import os
+import random
 
 import numpy as np
 import pytest
 import torch
 
+from evostencils_torch.backend.evaluation import TorchProgramGenerator
 from evostencils_torch.backend.lowering import CycleLowering
 from evostencils_torch.grammar.multigrid import generate_primitive_set
 from evostencils_torch.ir import reference_cycles
-from evostencils_torch.ops import rb_sweep
+from evostencils_torch.ops import krylov, rb_sweep
+from evostencils_torch.optimization.optimizer import Optimizer
+from evostencils_torch.ops import stencil_ops as sops
+from evostencils_torch.problems.api import make_grid
+from evostencils_torch.problems.helmholtz import helmholtz_2d
 from evostencils_torch.problems.poisson import poisson_2d
-from evostencils_torch.stencils import constant
+from evostencils_torch.stencils import constant, gallery
 
 ENTRIES = {
     "5-point": (((0, 0), 4.0), ((1, 0), -1.0), ((-1, 0), -1.0), ((0, 1), -1.0), ((0, -1), -1.0)),
@@ -79,3 +91,102 @@ def test_v22_cycle_on_the_card_launches_the_kernel_and_matches_the_cpu(cuda):
     assert rb_sweep.launches.total() == before + 4  # two pre- and two post-smoothing steps
     scale = float(expected.abs().max())
     assert float((got.cpu() - expected).abs().max()) / scale < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+@pytest.mark.parametrize("solver", sorted(krylov.SOLVERS))
+def test_krylov_solver_on_the_card_matches_the_cpu(cuda, solver, dtype):
+    # 6 iterations on the shifted Helmholtz operator M (k = 20, 31²) for a
+    # complex state, on 2D Poisson for a real one: 1e-10 relative.
+    grid = make_grid(5, 2)
+    generator = gallery.Helmholtz2D(20.0, complex(1.0, 0.5)) if dtype.is_complex else (
+        gallery.Poisson2D())
+    stencil = generator.generate_stencil(grid)
+    rng = np.random.default_rng(5)
+    f = torch.from_numpy(rng.standard_normal(grid.interior_shape)).to(dtype)
+
+    def apply_a(state):
+        return tuple(sops.apply_constant_stencil(x, stencil) for x in state)
+
+    expected = krylov.SOLVERS[solver](apply_a, (f,), 6)[0]
+    got = krylov.SOLVERS[solver](apply_a, (f.to(cuda),), 6)[0]
+    assert got.device.type == "cuda" and got.dtype == dtype
+    assert float((got.cpu() - expected).abs().max() / expected.abs().max()) <= 1e-10
+
+
+@pytest.mark.cuda
+def test_preconditioned_bicgstab_on_the_card_matches_the_cpu(cuda):
+    # Damped Jacobi on 2D Poisson at 15² to a reduction of 1e-3, the case of
+    # tests/test_torch_krylov.py (21 iterations; the port against JAX there:
+    # x 4e-11, norm 6e-9): the same count, x and the norm within 1e-7, the
+    # card's reductions rounding differently again.
+    stencil = gallery.Poisson2D().generate_stencil(make_grid(4, 2))
+    rng = np.random.default_rng(6)
+    f = torch.from_numpy(rng.standard_normal((15, 15)) + 1j * rng.standard_normal((15, 15)))
+
+    def apply_a(state):
+        return tuple(sops.apply_constant_stencil(x, stencil) for x in state)
+
+    def apply_m(state):
+        return tuple((0.8 / stencil.center_value()) * x for x in state)
+
+    x_cpu, it_cpu, res_cpu = krylov.preconditioned_bicgstab(apply_a, apply_m, (f,), 200, 1e-3)
+    x, it, res = krylov.preconditioned_bicgstab(apply_a, apply_m, (f.to(cuda),), 200, 1e-3)
+    assert it == it_cpu and 5 < it <= 30, (it, it_cpu)
+    x_error = float((x[0].cpu() - x_cpu[0]).abs().max() / x_cpu[0].abs().max())
+    assert x_error <= 1e-7 and abs(res - res_cpu) <= 1e-7 * res_cpu, (x_error, res, res_cpu)
+
+
+@pytest.mark.cuda
+def test_helmholtz_evaluation_on_the_card_matches_the_cpu(cuda):
+    # The textbook V(2,1) ω = 0.6 at k = 20, levels 3-5, complex128: the
+    # same probe verdict and stages; the count within ±2 and ρ within 10 %
+    # (tests/test_torch_helmholtz.py's bands for runs of about 20 iterations).
+    problem = helmholtz_2d(min_level=3, max_level=5, k=20.0, dtype=torch.complex128)
+    _, terminals = generate_primitive_set(
+        problem.approximation(), problem.rhs(), 2, problem.coarsening_factors,
+        problem.max_level, problem.equations, problem.operators, problem.fields,
+        depth=2, maximum_local_system_size=8,
+    )
+    cycle = reference_cycles.generate_v_cycle(terminals, problem.rhs(), 2, 1, omega=0.6)
+    on_cpu = TorchProgramGenerator(problem, dtype=torch.complex128, device="cpu")
+    on_card = TorchProgramGenerator(problem, dtype=torch.complex128, device=cuda)
+    t_cpu, rho_cpu, it_cpu = on_cpu.generate_and_evaluate(cycle, evaluation_samples=1)
+    before = rb_sweep.launches.total()
+    t, rho, it = on_card.generate_and_evaluate(cycle, evaluation_samples=1)
+    assert t < 1e50 and t_cpu < 1e50
+    assert abs(it - it_cpu) <= 2 and abs(rho - rho_cpu) <= 0.1 * rho_cpu
+    assert on_card.last_outer_solve["probe"] == on_cpu.last_outer_solve["probe"] == "survived"
+    assert on_card.last_outer_solve["stages"] == on_cpu.last_outer_solve["stages"]
+    # A complex state never reaches the float32 kernel.
+    assert rb_sweep.launches.total() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.slow
+def test_k320_champion_count_follows_the_summation_order_on_the_card(cuda, monkeypatch, capsys):
+    # The stored k = 320 champion (levels 3-7, complex128, cap 10,000) with
+    # BiCGStab's inner products summed rows first, then with torch.vdot:
+    # only the rounding of the reductions changes.  Both must contract; the
+    # counts are printed beside tests/test_torch_helmholtz.py's CPU counts.
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "artifacts", "helmholtz_k320_r5", "individual_0.txt")) as f:
+        champion = "".join(line for line in f if not line.startswith("#")).strip()
+    orders = {
+        "rows first": lambda x, y: torch.sum(torch.sum(torch.conj(x) * y, dim=1)),
+        "vdot": lambda x, y: torch.vdot(x.reshape(-1), y.reshape(-1)),
+    }
+    counts = {}
+    for name, field_dot in orders.items():
+        monkeypatch.setattr(
+            krylov, "dot", lambda a, b, _dot=field_dot: sum(_dot(x, y) for x, y in zip(a, b)))
+        problem = helmholtz_2d(min_level=3, max_level=7, k=320.0, dtype=torch.complex128)
+        generator = TorchProgramGenerator(problem, dtype=torch.complex128, device=cuda)
+        optimizer = Optimizer.for_problem(
+            problem, program_generator=generator, rng=random.Random(0))
+        _, rho, counts[name] = optimizer.generate_and_evaluate_program_from_grammar_representation(
+            champion, 4, evaluation_samples=1)
+        assert 0.0 < rho < 1.0
+    with capsys.disabled():
+        print(f"\nk=320 champion on the card, outer iterations by summation order: {counts}")

@@ -4,11 +4,13 @@ The machine with the GPU has no JAX, so this is what breaks first there;
 and the port keeps its own copies of the reference's array-free layers,
 so it must not reach into `evostencils_tpu` either, not even lazily.  A
 fresh interpreter refuses every `jax`/`jaxlib`/`evostencils_tpu` import,
-imports the port's modules, scripts/torch_optimize.py and chip_smoke
-(without running its main), builds a grammar and compiles a tree through
-the port (which runs the lazy imports inside the IR), runs the evolution
-entry point on the CPU for one generation with --tune, and must end with
-none of them loaded.
+imports the port's modules, scripts/torch_optimize.py,
+scripts/torch_evaluate_helmholtz_ladder.py and chip_smoke (without running
+its main), builds a grammar and compiles a tree through the port (which
+runs the lazy imports inside the IR), builds, compiles and evaluates a
+Helmholtz preconditioner (complex128, the outer BiCGStab solve), runs the
+evolution entry point on the CPU for one generation with --tune, and must
+end with none of them loaded.
 """
 
 import os
@@ -44,10 +46,12 @@ MODULES = [
     "evostencils_torch.problems",
     "evostencils_torch.problems.api",
     "evostencils_torch.problems.poisson",
+    "evostencils_torch.problems.helmholtz",
     "evostencils_torch.ops.stencil_ops",
     "evostencils_torch.ops.intergrid",
     "evostencils_torch.ops.coarse_solve",
     "evostencils_torch.ops.smoothers",
+    "evostencils_torch.ops.krylov",
     "evostencils_torch.ops.rb_sweep",
     "evostencils_torch.ops._build",
     "evostencils_torch.backend.lowering",
@@ -61,6 +65,7 @@ MODULES = [
     "evostencils_torch.optimization.optimizer",
     "evostencils_torch.optimization.relaxation",
     "scripts.torch_optimize",
+    "scripts.torch_evaluate_helmholtz_ladder",
     "chip_smoke",
 ]
 
@@ -99,6 +104,21 @@ cycle = reference_cycles.generate_v_22_cycle_two_grid(terminals[0], problem.rhs(
 TorchProgramGenerator(problem, dtype=torch.float64, device="cpu").generate_and_evaluate(
     cycle, evaluation_samples=1)
 apply_stored_omegas(cycle, [1.0, 1.0, 1.0, 1.0], label="import test")
+
+from evostencils_torch.problems import build_named_problem
+helmholtz = build_named_problem("helmholtz").with_levels(3, 5).with_parameters({{"k": 20.0}})
+pset, terminals = generate_primitive_set(
+    helmholtz.approximation(), helmholtz.rhs(), helmholtz.dimension,
+    helmholtz.coarsening_factors, helmholtz.max_level, helmholtz.equations,
+    helmholtz.operators, helmholtz.fields, depth=2, maximum_local_system_size=4)
+tree = gp.parse_tree(str(gp.gen_grow(pset, 2, 8, rng=random.Random(2))), pset)
+generator = TorchProgramGenerator(
+    helmholtz, dtype=torch.complex128, device="cpu", ladder_rungs=1)
+generator.generate_and_evaluate(gp.compile_tree(tree, pset)[0], evaluation_samples=1)
+t, rho, iterations = generator.generate_and_evaluate(
+    reference_cycles.generate_v_cycle(terminals, helmholtz.rhs(), 2, 1, omega=0.6),
+    evaluation_samples=1, global_variable_values={{"k": 20.0}})
+assert t < 1e50 and rho < 1.0, (t, rho, iterations)
 from scripts import torch_optimize
 output = sys.argv[1]
 assert torch_optimize.main(["--cpu", "--min-level", "3", "--max-level", "5", "--mu", "4",

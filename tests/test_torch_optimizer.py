@@ -223,7 +223,9 @@ def test_entry_points_default_to_the_card():
 def test_named_problems():
     problem = build_named_problem("poisson2d", 3, 5)
     assert (problem.name, problem.min_level, problem.max_level) == ("2D_FD_Poisson", 3, 5)
-    for name in ("poisson3d", "poisson2d_var", "elasticity", "helmholtz", "fas"):
+    helmholtz = build_named_problem("helmholtz")
+    assert (helmholtz.name, helmholtz.min_level, helmholtz.max_level) == ("2D_FD_Helmholtz", 3, 7)
+    for name in ("poisson3d", "poisson2d_var", "elasticity", "fas"):
         with pytest.raises(NotPortedError):
             build_named_problem(name)
     with pytest.raises(ValueError):

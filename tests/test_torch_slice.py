@@ -155,6 +155,15 @@ def test_one_cycle_matches_reference(tree_strings):
 def test_unported_feature_raises_and_is_never_scored_infinity():
     assert not issubclass(NotPortedError, (RuntimeError, ValueError, NotImplementedError))
     side = port_side(poisson_2d(3, 5, dtype=torch.float64))
+    cycle = side.expressions([])[0]
+    # FAS evaluation is not ported: it must raise, not score ∞.
+    fas_problem = side.problem._clone(uses_fas=True)
+    port = TorchProgramGenerator(fas_problem, dtype=torch.float64, device="cpu")
+    with pytest.raises(NotPortedError):
+        port.generate_and_evaluate(cycle, evaluation_samples=1)
+    with pytest.raises(NotPortedError):
+        TorchProgramGenerator(side.problem, dtype=torch.float16, device="cpu")
+    # A Krylov coarse-grid solver and a complex dtype are ported.
     t = side.terminals[0]
     u, f = t.approximation, side.problem.rhs()
     f_c = base.Multiplication(t.restriction, base.Residual(t.operator, u, f))
@@ -165,7 +174,6 @@ def test_unported_feature_raises_and_is_never_scored_infinity():
         relaxation_factor=1.0,
     )
     port = TorchProgramGenerator(side.problem, dtype=torch.float64, device="cpu")
-    with pytest.raises(NotPortedError):
-        port.generate_and_evaluate(cycle, evaluation_samples=1)
-    with pytest.raises(NotPortedError):
-        TorchProgramGenerator(side.problem, dtype=torch.complex128, device="cpu")
+    _, rho, _ = port.generate_and_evaluate(cycle, evaluation_samples=1)
+    assert 0 < rho < INFINITY
+    assert TorchProgramGenerator(side.problem, dtype=torch.complex128, device="cpu")

@@ -88,6 +88,43 @@ JSON line:
    individual must have a finite fitness and re-evaluate to the iteration
    count it had during the run.
 
+The problem families without a kernel (the sweep kernel's gate refuses
+variable, 3D, two-field, nonlinear and complex operators, as the
+reference's Pallas gate does), each at its published size, each phase
+printing its wall seconds, its ms per iteration, the kernel's launches
+(which must be 0) and the reference's n = 20 record beside its numbers:
+
+11. varcoeff: variable-coefficient Poisson (κ = 10), levels 5-9 (511²),
+   float32: the tuned champion with its stored ω, the same string untuned,
+   the textbook V(2,1) and V(2,2) at ω = 0.8.  The tuned champion is
+   repeated on the CPU (ρ within 2 %, iterations ±1) and must beat its
+   untuned string.
+12. poisson3d: the 3D champion untuned and with its stored ω at levels 2-6
+   (63³) in float64 and at levels 3-7 (127³) in float32; the tuned 63³ run
+   again on the CPU (2 % / ±1); every ρ finite and < 1.
+13. elasticity: the tuned elasticity champion as a string untuned and with
+   its ω at levels 5-8 (255², two fields) in float64, the tuned one on the
+   CPU too (2 % / ±1); once more in float32, recorded and not judged.
+14. fas: the FAS champion and both textbook V(2,2)s (Newton and Picard) at
+   levels 5-9 (511²) in float32 through the optimizer's grammar-string
+   entry; the champion must beat both and agree with its CPU run (2 % /
+   ±1); 20 textbook Newton cycles through CycleLowering.lower on the card
+   must reach the manufactured solution within 5e-3 in max norm.
+15. helmholtz_robin: the textbook V(2,1) ω = 0.6 preconditioning BiCGStab
+   with Robin boundaries, complex128, levels 3-7, k = 80, the outer cap cut
+   to 600 like the ladder's; the count and ρ recorded, the CPU run with the
+   same verdict and the count within 20 %.
+16. fas_evolve: scripts/torch_optimize.py on FAS (levels 5-9, SOGP, μ = λ
+   = 4, initial factor 2, one generation, one sample, seed 3), artifacts
+   under chiprun_out/fas_evolve/; the best has a finite fitness and
+   re-evaluates to its recorded count ±1.
+17. profile_families: one evaluation of the tuned variable-coefficient
+   champion (511²) and one of the tuned 3D champion (127³, float32) under
+   torch.profiler, and one cycle of each alone, and of the FAS champion
+   (511²): wall and device busy time, idle share, device operations per
+   cycle, the top operations by device time; the tables go to
+   chiprun_out/profile_<family>_{eval,cycle}.txt.
+
 Before the last line it prints the kernels as one JSON object and the card's
 `nvidia-smi` name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -115,6 +152,8 @@ from evostencils_torch.ir.transformations import canonical_string, collect_cycle
 from evostencils_torch.measure import LEVELS, bound_ms, median_device_ms
 from evostencils_torch.ops import _build, rb_sweep
 from evostencils_torch.optimization.optimizer import Optimizer
+from evostencils_torch.backend.lowering import CycleLowering
+from evostencils_torch.problems import elasticity, fas, poisson
 from evostencils_torch.problems.helmholtz import helmholtz_2d
 from evostencils_torch.problems.poisson import poisson_2d
 from evostencils_torch.stencils import constant
@@ -170,8 +209,12 @@ def role(shape) -> str:
     return "whole_array" if shape[0] * shape[1] <= WHOLE_ARRAY_CELLS else "row_blocked"
 
 
+START = time.perf_counter()
+
+
 def emit(record: dict) -> None:
-    print(json.dumps(record), flush=True)
+    """One JSON line; `t_s` is the script's wall time when it was printed."""
+    print(json.dumps({**record, "t_s": time.perf_counter() - START}), flush=True)
 
 
 def median_call_ms(fn, repeats: int = 30, warmup: int = 3) -> float:
@@ -475,37 +518,56 @@ def phase_evolve(failures: list) -> dict:
     return by_shape
 
 
-def phase_profile(generator, champion) -> None:
-    """One evaluation of the champion under torch.profiler; the idle share
-    is against the same evaluation's wall time without the profiler."""
+def profile_run(evaluate, table_name: str, host_ops: bool = True) -> dict:
+    """evaluate() once to warm, once timed, once under torch.profiler: wall
+    time, device busy time, idle share and device operations; the profiler's
+    table by kernel goes to chiprun_out/<table_name>.  The idle share is
+    against the wall time without the profiler.  `host_ops=False` traces the
+    device alone: a whole evaluation of a 127³ cycle records ~150,000
+    device operations, and their host-side events take the profiler minutes
+    to post-process."""
     from torch.profiler import ProfilerActivity, profile
 
-    def evaluate():
-        generator.generate_and_evaluate(champion, evaluation_samples=3)
+    def synchronized():
+        evaluate()
         torch.cuda.synchronize()
 
-    evaluate()
+    synchronized()
     t0 = time.perf_counter()
-    evaluate()
+    synchronized()
     wall_s = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        evaluate()
+        synchronized()
         profiled_wall_s = time.perf_counter() - t0
     device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
-    sweep = [e for e in device if "rb_sweep_kernel" in e.name]
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_champion_eval.txt"), "w") as table:
+    with open(os.path.join(out_dir, table_name), "w") as table:
         table.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
-    emit({
-        "phase": "profile",
-        "wall_ms": wall_s * 1e3,
-        "profiled_wall_ms": profiled_wall_s * 1e3,
-        "device_busy_ms": busy_ms,
-        "idle_share": 1.0 - busy_ms / (wall_s * 1e3),
+    by_name = {}
+    for e in device:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda item: -item[1])[:6]
+    return {
+        "wall_ms": wall_s * 1e3, "profiled_wall_ms": profiled_wall_s * 1e3,
+        "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / (wall_s * 1e3),
         "device_ops": len(device),
+        "top_device_ops": [{"name": name[:80], "ms": ms, "share": ms / busy_ms if busy_ms else None}
+                           for name, ms in top],
+        "events": device,
+    }
+
+
+def phase_profile(generator, champion) -> None:
+    """One evaluation of the champion under torch.profiler (profile_run)."""
+    run = profile_run(lambda: generator.generate_and_evaluate(champion, evaluation_samples=3),
+                      "profile_champion_eval.txt")
+    sweep = [e for e in run.pop("events") if "rb_sweep_kernel" in e.name]
+    emit({
+        "phase": "profile", **run,
         "rb_sweep_kernel": {
             "launches": len(sweep),
             "busy_ms": sum(e.time_range.elapsed_us() for e in sweep) / 1e3,
@@ -747,6 +809,365 @@ def phase_helmholtz_evolve(failures: list) -> None:
                         f"and {again} evaluated again")
 
 
+# ---------------------------------------------------------------------------
+# The problem families without a kernel.
+# ---------------------------------------------------------------------------
+
+# The family phases' device; their CPU repeats name the CPU themselves.
+DEVICE = "cuda"
+ARTIFACTS = os.path.join(ROOT, "artifacts")
+VARCOEFF_CHAMPION = os.path.join(ARTIFACTS, "varcoeff_champion_r5_tuned.txt")
+VARCOEFF_TEXTBOOKS = {name: os.path.join(ARTIFACTS, f"varcoeff_textbook_{name}_w0.8.txt")
+                      for name in ("V21", "V22")}
+POISSON3D_CHAMPION = os.path.join(ARTIFACTS, "secondary_r3", "poisson3d_individual_0_tuned.txt")
+ELASTICITY_CHAMPION = os.path.join(ARTIFACTS, "secondary_r3", "elasticity_individual_0_tuned.txt")
+FAS_CHAMPION = os.path.join(ARTIFACTS, "fas_champion_r5.txt")
+FAS_TEXTBOOKS = {name: os.path.join(ARTIFACTS, f"fas_textbook_V22_jacobi_{name}.txt")
+                 for name in ("newton", "picard")}
+# The reference's n = 20 statistics (JAX on a CPU, scripts/champion_stats.py,
+# one seeded random right-hand side per sample): cross-checks, not targets.
+RECORDS = {
+    "varcoeff": os.path.join(ARTIFACTS, "varcoeff_stats_n20_r5.json"),
+    "poisson3d_63": os.path.join(ARTIFACTS, "secondary_r3", "poisson3d_stats_n20_64cubed_r5.json"),
+    "poisson3d_127": os.path.join(
+        ARTIFACTS, "secondary_r3", "poisson3d_stats_n20_128cubed_generalization.json"),
+    "elasticity_f64": os.path.join(ARTIFACTS, "secondary_r3", "elasticity_stats_n20_f64.json"),
+    "elasticity_f32": os.path.join(ARTIFACTS, "secondary_r3", "elasticity_stats_n20.json"),
+    "fas": os.path.join(ARTIFACTS, "fas_stats_n20_r5.json"),
+}
+
+
+def reference_record(key: str, path: str, label: str = "untuned"):
+    """The median ρ and iterations the reference's n = 20 record gives the
+    champion file `path` (`label`: "untuned" or "tuned"), or None."""
+    with open(RECORDS[key]) as f:
+        report = json.load(f)
+    for champion in report["champions"]:
+        if os.path.basename(champion["file"]) == os.path.basename(path) and label in champion:
+            entry = champion[label]
+            return {"rho": entry["rho"]["median"], "iterations": entry["iterations"]["median"],
+                    "n": entry["rho"]["n"], "levels": report["levels"]}
+    return None
+
+
+def family_pset(problem):
+    pset, _ = generate_primitive_set(
+        problem.approximation(), problem.rhs(), problem.dimension,
+        problem.coarsening_factors, problem.max_level, problem.equations,
+        problem.operators, problem.fields, depth=problem.max_level - problem.min_level,
+        maximum_local_system_size=8, FAS=bool(problem.uses_fas),
+    )
+    return pset
+
+
+def artifact_expression(problem, path: str, tuned: bool, failures: list):
+    """A stored grammar string compiled through the problem's primitive set,
+    with its stored ω when `tuned`."""
+    tree_string, omegas = parse_champion_file(path)
+    pset = family_pset(problem)
+    expr = gp.compile_tree(gp.parse_tree(tree_string, pset), pset)[0]
+    if tuned and not apply_stored_omegas(expr, omegas, label=path):
+        failures.append(f"{os.path.basename(path)}: its stored omegas were not applied")
+    return expr
+
+
+def fitness_record(fitness, started: float) -> dict:
+    """A (time to target, ρ, iterations) fitness as a JSON record, with ms
+    per iteration (time to target over the count) and the wall seconds
+    since `started`."""
+    t, rho, iterations = fitness
+    converged = t < 1e50
+    return {"rho": rho, "iterations": iterations,
+            "time_to_target_ms": t if converged else None,
+            "ms_per_iteration": t / iterations if converged else None,
+            "wall_s": time.perf_counter() - started}
+
+
+def timed_evaluation(generator, expr, samples: int = 3) -> dict:
+    t0 = time.perf_counter()
+    fitness = generator.generate_and_evaluate(expr, evaluation_samples=samples)
+    if generator.device.type == "cuda":
+        torch.cuda.synchronize()
+    return fitness_record(fitness, t0)
+
+
+def check_cpu_repeat(failures: list, label: str, card: dict, cpu: dict) -> None:
+    if not abs(cpu["rho"] - card["rho"]) <= 0.02 * card["rho"]:
+        failures.append(f"{label}: CPU rho {cpu['rho']} vs card {card['rho']} beyond 2 %")
+    if not abs(cpu["iterations"] - card["iterations"]) <= 1:
+        failures.append(f"{label}: CPU iterations {cpu['iterations']} vs card {card['iterations']}")
+
+
+def check_contracts(failures: list, label: str, result: dict) -> None:
+    if not (math.isfinite(result["rho"]) and 0.0 < result["rho"] < 1.0):
+        failures.append(f"{label}: rho {result['rho']} is not a finite contraction")
+
+
+def check_no_launch(failures: list, phase: str) -> int:
+    """The sweep kernel's launches since the phase began: the gate must
+    refuse these operators, so any launch is a failure."""
+    launched = rb_sweep.launches.total()
+    if launched:
+        failures.append(f"{phase}: the sweep kernel launched {launched} times on an operator "
+                        "its gate must refuse")
+    return launched
+
+
+def phase_varcoeff(failures: list) -> int:
+    start = time.perf_counter()
+    rb_sweep.launches.clear()
+    problem = poisson.poisson_2d_variable(5, 9, kappa=10.0, dtype=torch.float32)
+    generator = TorchProgramGenerator(problem, dtype=torch.float32, device=DEVICE)
+    runs = {
+        "tuned": (VARCOEFF_CHAMPION, True, "tuned"),
+        "untuned": (VARCOEFF_CHAMPION, False, "untuned"),
+        "textbook_V21": (VARCOEFF_TEXTBOOKS["V21"], False, "untuned"),
+        "textbook_V22": (VARCOEFF_TEXTBOOKS["V22"], False, "untuned"),
+    }
+    results = {}
+    for name, (path, tuned, label) in runs.items():
+        results[name] = timed_evaluation(
+            generator, artifact_expression(problem, path, tuned, failures))
+        results[name]["reference_n20"] = reference_record("varcoeff", path, label)
+    launched = check_no_launch(failures, "varcoeff")
+    cpu = TorchProgramGenerator(problem, dtype=torch.float32, device="cpu")
+    results["tuned_on_cpu"] = timed_evaluation(
+        cpu, artifact_expression(problem, VARCOEFF_CHAMPION, True, failures), samples=1)
+    emit({"phase": "varcoeff", "levels": [5, 9], "dtype": "float32", "kappa": 10.0,
+          **results, "vm_stats": generator.vm_stats(), "rb_sweep_launches": launched,
+          "phase_s": time.perf_counter() - start})
+    for name, result in results.items():
+        check_contracts(failures, f"varcoeff {name}", result)
+    check_cpu_repeat(failures, "varcoeff tuned", results["tuned"], results["tuned_on_cpu"])
+    if not results["tuned"]["rho"] < results["untuned"]["rho"]:
+        failures.append(f"varcoeff: tuned rho {results['tuned']['rho']} does not beat "
+                        f"untuned {results['untuned']['rho']}")
+    return launched
+
+
+def phase_poisson3d(failures: list) -> int:
+    start = time.perf_counter()
+    rb_sweep.launches.clear()
+    configurations = {
+        "63": (poisson.poisson_3d(2, 6, dtype=torch.float64), torch.float64, "poisson3d_63"),
+        "127": (poisson.poisson_3d(3, 7, dtype=torch.float32), torch.float32, "poisson3d_127"),
+    }
+    results = {}
+    for size, (problem, dtype, record) in configurations.items():
+        generator = TorchProgramGenerator(problem, dtype=dtype, device=DEVICE)
+        for label in ("untuned", "tuned"):
+            result = timed_evaluation(generator, artifact_expression(
+                problem, POISSON3D_CHAMPION, label == "tuned", failures))
+            result["reference_n20"] = reference_record(record, POISSON3D_CHAMPION, label)
+            results[f"{label}_{size}^3_{str(dtype).split('.')[-1]}"] = result
+    launched = check_no_launch(failures, "poisson3d")
+    problem, dtype, _ = configurations["63"]
+    cpu = TorchProgramGenerator(problem, dtype=dtype, device="cpu")
+    results["tuned_63^3_float64_on_cpu"] = timed_evaluation(
+        cpu, artifact_expression(problem, POISSON3D_CHAMPION, True, failures), samples=1)
+    emit({"phase": "poisson3d", **results, "rb_sweep_launches": launched,
+          "phase_s": time.perf_counter() - start})
+    for name, result in results.items():
+        check_contracts(failures, f"poisson3d {name}", result)
+    check_cpu_repeat(failures, "poisson3d tuned 63³", results["tuned_63^3_float64"],
+                     results["tuned_63^3_float64_on_cpu"])
+    return launched
+
+
+def phase_elasticity(failures: list) -> int:
+    start = time.perf_counter()
+    rb_sweep.launches.clear()
+    problem = elasticity.linear_elasticity_2d(5, 8, dtype=torch.float64)
+    generator = TorchProgramGenerator(problem, dtype=torch.float64, device=DEVICE)
+    results = {}
+    for label in ("untuned", "tuned"):
+        results[label] = timed_evaluation(generator, artifact_expression(
+            problem, ELASTICITY_CHAMPION, label == "tuned", failures))
+        results[label]["reference_n20"] = reference_record(
+            "elasticity_f64", ELASTICITY_CHAMPION, label)
+    problem32 = problem._clone(dtype=torch.float32)
+    results["tuned_float32_not_judged"] = timed_evaluation(
+        TorchProgramGenerator(problem32, dtype=torch.float32, device=DEVICE),
+        artifact_expression(problem32, ELASTICITY_CHAMPION, True, failures))
+    results["tuned_float32_not_judged"]["reference_n20"] = reference_record(
+        "elasticity_f32", ELASTICITY_CHAMPION, "tuned")
+    launched = check_no_launch(failures, "elasticity")
+    cpu = TorchProgramGenerator(problem, dtype=torch.float64, device="cpu")
+    results["tuned_on_cpu"] = timed_evaluation(
+        cpu, artifact_expression(problem, ELASTICITY_CHAMPION, True, failures), samples=1)
+    emit({"phase": "elasticity", "levels": [5, 8], "dtype": "float64", "fields": 2, **results,
+          "vm_stats": generator.vm_stats(), "rb_sweep_launches": launched,
+          "phase_s": time.perf_counter() - start})
+    for name in ("untuned", "tuned", "tuned_on_cpu"):
+        check_contracts(failures, f"elasticity {name}", results[name])
+    if math.isnan(results["tuned_float32_not_judged"]["rho"]):
+        failures.append("elasticity: a NaN rho in float32")
+    check_cpu_repeat(failures, "elasticity tuned", results["tuned"], results["tuned_on_cpu"])
+    return launched
+
+
+def grammar_entry_evaluation(problem, device, path: str) -> dict:
+    """A stored grammar string through the optimizer's grammar-string entry,
+    which builds the primitive set (the FAS one for a FAS problem)."""
+    with open(path) as f:
+        tree_string = "".join(line for line in f if not line.startswith("#")).strip()
+    generator = TorchProgramGenerator(problem, dtype=problem.dtype, device=device)
+    optimizer = Optimizer.for_problem(problem, program_generator=generator, rng=random.Random(0))
+    t0 = time.perf_counter()
+    fitness = optimizer.generate_and_evaluate_program_from_grammar_representation(
+        tree_string, 8, evaluation_samples=1 if device == "cpu" else 3)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return fitness_record(fitness, t0)
+
+
+def phase_fas(failures: list) -> int:
+    start = time.perf_counter()
+    rb_sweep.launches.clear()
+    problem = fas.fas_2d(5, 9, dtype=torch.float32)
+    results = {"champion": grammar_entry_evaluation(problem, DEVICE, FAS_CHAMPION)}
+    results["champion"]["reference_n20"] = reference_record("fas", FAS_CHAMPION)
+    for name, path in FAS_TEXTBOOKS.items():
+        results[f"textbook_{name}"] = grammar_entry_evaluation(problem, DEVICE, path)
+        results[f"textbook_{name}"]["reference_n20"] = reference_record("fas", path)
+
+    # Twenty textbook Newton cycles on the card from the zero guess.
+    newton = artifact_expression(problem, FAS_TEXTBOOKS["newton"], False, failures)
+    step = CycleLowering(torch.float32, DEVICE).lower(newton)
+    u, f = problem.initial_state(torch.float32, device=DEVICE)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        u = step(u, f)
+    torch.cuda.synchronize()
+    cycles_s = time.perf_counter() - t0
+    x, y = problem.interior_coordinates(problem.max_level)
+    error = float(np.max(np.abs(u[0].double().cpu().numpy() - fas._solution(x, y))))
+    launched = check_no_launch(failures, "fas")
+    results["champion_on_cpu"] = grammar_entry_evaluation(problem, "cpu", FAS_CHAMPION)
+    emit({"phase": "fas", "levels": [5, 9], "dtype": "float32", **results,
+          "newton_20_cycles": {"max_error": error, "wall_s": cycles_s,
+                               "ms_per_cycle": cycles_s * 1e3 / 20},
+          "rb_sweep_launches": launched, "phase_s": time.perf_counter() - start})
+    for name, result in results.items():
+        check_contracts(failures, f"fas {name}", result)
+    for name in FAS_TEXTBOOKS:
+        if not results["champion"]["rho"] < results[f"textbook_{name}"]["rho"]:
+            failures.append(f"fas: champion rho {results['champion']['rho']} does not beat the "
+                            f"textbook {name} V(2,2)'s {results[f'textbook_{name}']['rho']}")
+    check_cpu_repeat(failures, "fas champion", results["champion"], results["champion_on_cpu"])
+    if not error < 5e-3:
+        failures.append(f"fas: 20 Newton cycles end {error} from the manufactured solution")
+    return launched
+
+
+def phase_helmholtz_robin(failures: list) -> int:
+    start = time.perf_counter()
+    rb_sweep.launches.clear()
+    problem = helmholtz_2d(min_level=3, max_level=7, k=80.0, boundary="robin",
+                           dtype=torch.complex128)
+    problem.outer_solver["max_iterations"] = LADDER_CAP
+    cycle = textbook_v21(problem)
+    generator = TorchProgramGenerator(problem, dtype=torch.complex128, device=DEVICE)
+    rung = torch_evaluate_helmholtz_ladder.evaluate_ladder(
+        generator, "textbook V(2,1) ω=0.6 Robin", cycle, 80.0, 1)[0]
+    launched = check_no_launch(failures, "helmholtz_robin")
+    cpu = TorchProgramGenerator(problem, dtype=torch.complex128, device="cpu")
+    cpu_rung = torch_evaluate_helmholtz_ladder.evaluate_ladder(
+        cpu, "textbook V(2,1) ω=0.6 Robin on the CPU", cycle, 80.0, 1)[0]
+    emit({"phase": "helmholtz_robin", "dtype": "complex128", "levels": [3, 7], "k": 80.0,
+          "boundary": "robin", "cap": LADDER_CAP, "card": rung_record(rung),
+          "cpu": rung_record(cpu_rung), "vm_stats": generator.vm_stats(),
+          # The reference keeps no statistics of Robin boundaries.
+          "reference_n20": None, "rb_sweep_launches": launched,
+          "phase_s": time.perf_counter() - start})
+    check_results(failures, "helmholtz_robin", [(rung.time_ms, rung.rho, rung.iterations)])
+    if cpu_rung.converged != rung.converged or (
+            abs(cpu_rung.iterations - rung.iterations) > 0.2 * rung.iterations):
+        failures.append(f"helmholtz_robin: the CPU {cpu_rung} vs the card {rung}")
+    return launched
+
+
+FAS_EVOLVE_ARGS = [
+    "--problem", "fas", "--method", "sogp", "--mu", "4", "--lambda", "4",
+    "--population-initialization-factor", "2", "--generations", "1",
+    "--evaluation-samples", "1", "--seed", "3",
+    "--output", os.path.join(ROOT, "chiprun_out", "fas_evolve"),
+]
+
+
+def phase_fas_evolve(failures: list) -> int:
+    """One generation of FAS evolution through the entry point; the best
+    individual evaluated once more."""
+    measured = {}
+    evaluate = TorchProgramGenerator.generate_and_evaluate
+
+    def recording(self, expression, *args, **kwargs):
+        result = evaluate(self, expression, *args, **kwargs)
+        measured[canonical_string(expression)] = result
+        return result
+
+    start = time.perf_counter()
+    rb_sweep.launches.clear()
+    TorchProgramGenerator.generate_and_evaluate = recording
+    try:
+        result = torch_optimize.run(FAS_EVOLVE_ARGS)
+    finally:
+        TorchProgramGenerator.generate_and_evaluate = evaluate
+    optimizer, generator = result.optimizer, result.generator
+    best = result.halls_of_fame[-1][0]
+    expr = optimizer.compile_individual(best)[0]
+    during = measured.get(canonical_string(expr))
+    again = generator.generate_and_evaluate(expr, evaluation_samples=1)
+    launched = check_no_launch(failures, "fas_evolve")
+    evaluations = optimizer._total_number_of_evaluations
+    emit({
+        "phase": "fas_evolve", "args": " ".join(FAS_EVOLVE_ARGS[:-2]),
+        "evaluations": evaluations, "evolution_s": result.evolution_s,
+        "evals_per_hour": evaluations / result.evolution_s * 3600.0,
+        "vm_stats": generator.vm_stats(),
+        "best": {"fitness": list(best.fitness_values),
+                 "during": list(during) if during else None, "reevaluated": list(again)},
+        "rb_sweep_launches": launched, "phase_s": time.perf_counter() - start,
+    })
+    check_results(failures, "fas_evolve", [again])
+    if not (math.isfinite(best.fitness_values[0]) and best.fitness_values[0] < 1e50):
+        failures.append(f"fas_evolve: best fitness {best.fitness_values}")
+    if during is None or abs(during[2] - again[2]) > 1:
+        failures.append(f"fas_evolve: the best individual had {during} during the run "
+                        f"and {again} evaluated again")
+    return launched
+
+
+def phase_profile_families(failures: list) -> None:
+    """One evaluation and one cycle of the tuned variable-coefficient
+    champion (511², float32) and of the tuned 3D champion (127³, float32);
+    one cycle of the FAS champion (511², float32), whose evaluation is
+    timed in the fas phase."""
+    configurations = {
+        "varcoeff_511": (poisson.poisson_2d_variable(5, 9, dtype=torch.float32),
+                         VARCOEFF_CHAMPION, True),
+        "poisson3d_127": (poisson.poisson_3d(3, 7, dtype=torch.float32), POISSON3D_CHAMPION, True),
+        "fas_511": (fas.fas_2d(5, 9, dtype=torch.float32), FAS_CHAMPION, False),
+    }
+    for name, (problem, path, evaluate) in configurations.items():
+        generator = TorchProgramGenerator(problem, dtype=torch.float32, device=DEVICE)
+        expr = artifact_expression(problem, path, evaluate, failures)
+        record = {"phase": "profile_families", "family": name}
+        if evaluate:
+            evaluation = profile_run(
+                lambda: generator.generate_and_evaluate(expr, evaluation_samples=3),
+                f"profile_{name}_eval.txt", host_ops=False)
+            record["evaluation"] = {k: v for k, v in evaluation.items() if k != "events"}
+        step = generator.lowering.lower(expr)
+        u, f = problem.initial_state(torch.float32, device=DEVICE)
+        cycle = profile_run(lambda: step(u, f), f"profile_{name}_cycle.txt")
+        record["one_cycle"] = {k: v for k, v in cycle.items() if k != "events"}
+        record["device_ops_per_cycle"] = cycle["device_ops"]
+        emit(record)
+        if not cycle["device_ops"]:
+            failures.append(f"profile_families {name}: no operation ran on the device")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing was run",
@@ -763,6 +1184,15 @@ def main() -> int:
     phase_helmholtz_c64(failures)
     cgs_launches = phase_krylov_cgs(failures)
     phase_helmholtz_evolve(failures)
+    family_launches = {
+        "varcoeff": phase_varcoeff(failures),
+        "poisson3d": phase_poisson3d(failures),
+        "elasticity": phase_elasticity(failures),
+        "fas": phase_fas(failures),
+        "helmholtz_robin": phase_helmholtz_robin(failures),
+        "fas_evolve": phase_fas_evolve(failures),
+    }
+    phase_profile_families(failures)
     if failures:
         for failure in failures:
             print(f"chip_smoke FAILED: {failure}", file=sys.stderr)
@@ -777,6 +1207,8 @@ def main() -> int:
                                    if role(shape) == name),
             "krylov_cgs_launches": sum(n for shape, n in cgs_launches.items()
                                        if role(shape) == name),
+            # The families the gate refuses: every count is checked to be 0.
+            **{f"{phase}_launches": count for phase, count in family_launches.items()},
             "max_abs_err": max(e for s in CHECKED if role(s) == name
                                for e in kernel[s]["max_abs_err"].values()),
             "ms": kernel[timed]["ms"], "plain_ms": kernel[timed]["plain_ms"],
@@ -785,10 +1217,11 @@ def main() -> int:
             # No single PyTorch call computes a red-black collective-Jacobi step.
             "library_ms": None,
         })
-    emit({"kernels": kernels})
+    emit({"phase": "end"})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(device["nvidia_smi"], flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],
-                                 "count": device["count"]}})
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],
+                                             "count": device["count"]}}), flush=True)
     return 0
 
 

@@ -16,19 +16,24 @@ a grammar tree string compiles to the same IR on both sides:
 
 and owns every layer that touches arrays:
 
-    problems/   jax-free Problem, the 2D Poisson family and 2D Helmholtz
-                with its complex shifted-Laplacian preconditioner
-    ops/        stencils, transfers, coarse solve, smoothers, the Krylov
+    problems/   jax-free Problem and every family of the reference's
+                registry: 1D/2D/3D Poisson, variable-coefficient Poisson
+                (2D, 3D), linear elasticity (two fields), 2D Helmholtz with
+                its complex shifted-Laplacian preconditioner (Dirichlet or
+                Robin) and the nonlinear FAS problem
+    ops/        stencils (constant and variable), transfers, coarse solve,
+                smoothers, the Krylov
                 solvers (CG, CR, MinRes, BiCGStab, preconditioned
                 BiCGStab) and the hand-written CUDA red-black sweep
                 (csrc/rb_sweep.cu)
-    backend/    IR -> eager torch cycle, cycle VM, fitness evaluation
-                (single and same-structure groups, the outer-Krylov solve
-                and the k-ladder of Helmholtz)
+    backend/    IR -> eager torch cycle (linear, variable-coefficient and
+                nonlinear FAS operators), cycle VM, fitness evaluation
+                (single and same-structure groups, FAS, the outer-Krylov
+                solve and the k-ladder of Helmholtz)
     optimization/optimizer.py, relaxation.py: the evolutionary optimizer
                 and the ω tuners (torch.autograd, CMA-ES)
-    interop.py  carries the reference's arrays, VM programs and solve
-                specs across to torch
+    interop.py  carries the reference's arrays, coefficient planes, VM
+                programs and solve specs across to torch
 
 The entry scripts are scripts/torch_optimize.py and
 scripts/torch_evaluate_helmholtz_ladder.py.  Every entry point runs on

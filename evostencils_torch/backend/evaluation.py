@@ -12,6 +12,9 @@ failures.
     cycle from the residual-driven stage solve.
   * float64, complex128: residual-driven stages, restarted from the exact
     host-f64 (complex128) residual when a stage stalls at its floor.
+  * a FAS problem (nonlinear operator): no power iteration and no cycle
+    VM; one residual-driven stage to the measurement target, with no
+    restart (a restart from a host residual assumes a linear cycle).
   * a problem with an `outer_solver` (Helmholtz): the cycle preconditions
     BiCGStab on the outer operator; the fitness is the outer iteration
     count to the true target, reached in at most 4 stages that restart
@@ -41,7 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from evostencils_torch import NotPortedError, dtype_is_64bit, dtype_is_complex, numpy_dtype
+from evostencils_torch import dtype_is_64bit, dtype_is_complex, numpy_dtype
 from evostencils_torch.backend.lowering import CycleLowering
 from evostencils_torch.backend.vm import CycleVM, Program
 from evostencils_torch.ir import base, system
@@ -242,7 +245,10 @@ class TorchProgramGenerator:
 
     def _vm_program(self, expression):
         """(vm, Program) when the expression is expressible in the VM ISA;
-        (vm, None) on a translation miss; (None, None) for a single level."""
+        (vm, None) on a translation miss; (None, None) for FAS or a single
+        level."""
+        if self.uses_FAS():
+            return None, None
         level = self._expression_level(expression)
         if level - self.problem.min_level + 1 < 2:
             return None, None
@@ -459,8 +465,6 @@ class TorchProgramGenerator:
         global_variable_values=None,
     ):
         """Returns (time_to_convergence_ms, convergence_factor, iterations)."""
-        if self.uses_FAS():
-            raise NotPortedError("FAS evaluation")
         if global_variable_values:
             self._apply_parameter_values(global_variable_values)
             if "k" in global_variable_values and getattr(self.problem, "outer_solver", None):
@@ -509,7 +513,8 @@ class TorchProgramGenerator:
             (stage_solve, power_solve, operator), omegas = self._build_solver(expression)
             u0, f, e0, zf = self._probe_state(expression)
 
-            if not dtype_is_64bit(self.dtype):
+            linear = not self.uses_FAS()
+            if linear and not dtype_is_64bit(self.dtype):
                 # ρ by power iteration on the error-propagation operator.
                 rate, _ = power_solve(e0, zf, omegas)
                 self._consecutive_device_failures = 0
@@ -523,7 +528,8 @@ class TorchProgramGenerator:
             # Restarted measurement: when a stage stalls at its residual
             # floor before the target, the exact 64-bit host residual is
             # the next stage's right-hand side (the error equation), so
-            # stage reductions multiply.  Any other exit ends it.
+            # stage reductions multiply.  Any other exit ends it, and a
+            # FAS cycle runs exactly one stage.
             log_eps = math.log(self.epsilon)
             log_reduction = 0.0
             it = 0
@@ -546,7 +552,7 @@ class TorchProgramGenerator:
                 it += best_it
                 stalled = (stage_executed - best_it) >= patience
                 target_hit = best_res <= self.measure_reduction * res0
-                if log_reduction <= log_eps or not (stalled or target_hit):
+                if not linear or log_reduction <= log_eps or not (stalled or target_hit):
                     break
                 try:
                     r64 = self._host_residual(
@@ -872,7 +878,8 @@ class TorchProgramGenerator:
 
     def _host_residual(self, operator, u_fields, f_fields):
         """Exact residual f − A·u on the host, in float64 (complex128 for
-        complex fields)."""
+        complex fields); a variable entry applies the generator's own
+        float64 or complex128 planes, not the lowering's cast copies."""
         out = []
         for i, row in enumerate(operator.entries):
             acc = np.array(
@@ -882,11 +889,13 @@ class TorchProgramGenerator:
                 if isinstance(entry, base.ZeroOperator):
                     continue
                 gen = getattr(entry, "stencil_generator", None)
-                if gen is not None and (
-                    getattr(gen, "is_nonlinear", False)
-                    or getattr(gen, "is_variable", lambda: False)()
-                ):
-                    raise NotPortedError("host residual of non-constant operators")
+                if gen is not None and getattr(gen, "is_nonlinear", False):
+                    raise NotImplementedError("host residual: nonlinear")
+                if gen is not None and getattr(gen, "is_variable", lambda: False)():
+                    offsets, planes = gen.generate_coefficient_arrays(entry.grid)
+                    acc -= sops.numpy_apply_variable_stencil(
+                        np.asarray(u, acc.dtype), offsets, planes)
+                    continue
                 stencil = entry.generate_stencil()
                 if isinstance(stencil, periodic.PeriodicStencil):
                     if not stencil.is_uniform():

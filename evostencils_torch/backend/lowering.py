@@ -1,5 +1,5 @@
 """IR → eager torch: lowers an evolved multigrid cycle to a step function
-(counterpart of evostencils_tpu/backend/lowering.py, linear path).
+(counterpart of evostencils_tpu/backend/lowering.py).
 
 `CycleLowering(dtype, device).lower(cycle)` returns
 `step(u_fields, f_fields) -> u_fields'`, which walks the IR and runs torch
@@ -20,14 +20,26 @@ as in the reference:
     with a Krylov method: that many iterations of ops/krylov.py; with an
     evolved cycle of an earlier run (`apply_as_solver`, multi-run
     level splitting): that cycle once on (0, r).
+  * Variable coefficients (2D/3D variable Poisson, Helmholtz with Robin
+    boundaries): the operator is applied from the generator's coefficient
+    planes, cast to the lowering's dtype and kept per (generator, grid);
+    point smoothers invert per-point centre planes; the dense coarse solve
+    is assembled from the planes.  Block smoothers of a variable operator
+    take the constant stencil sampled at the generator's `position`, as in
+    the reference.
+  * Nonlinear (FAS) operators: the generator applies A(u) itself; the
+    point smoothers are the reference's Picard and Newton point solves on
+    the iterate; the coarsest solve is 200 damped (0.8) Picard sweeps
+    started from the restricted solution R·u, which is taken structurally
+    from the τ-corrected right-hand side.  The reference's `fori_loop` is
+    a Python loop here.
 
 A complex dtype (Helmholtz) keeps the complex centre coefficients and
 inverses and takes the masked half-sweeps for red-black smoothing: the
-fused sweep is float32 only, as the reference's Pallas gate.  Nonlinear
-(FAS) operators and variable coefficients raise NotPortedError.  The
-reference's
-`lax.scan` smoothing chains exist to cut XLA compile time; eager torch
-applies the same smoothing steps one after another.
+fused sweep is float32 only, as the reference's Pallas gate, which also
+refuses 3D, multi-field, variable and nonlinear operators.  The
+reference's `lax.scan` smoothing chains exist to cut XLA compile time;
+eager torch applies the same smoothing steps one after another.
 """
 
 from __future__ import annotations
@@ -38,7 +50,7 @@ from typing import Callable, Sequence, Tuple
 import numpy as np
 import torch
 
-from evostencils_torch import NotPortedError, dtype_is_complex
+from evostencils_torch import dtype_is_complex, numpy_dtype
 from evostencils_torch.ir import base, system
 from evostencils_torch.ir import partitioning as part
 from evostencils_torch.ir.krylov import KrylovSubspaceMethod
@@ -61,17 +73,20 @@ def _is_nonlinear(gen) -> bool:
 
 
 def _constant_stencil(entry):
-    """The entry's stencil, a uniform periodic one as constant; raises
-    NotPortedError for variable or nonlinear coefficients."""
-    gen = getattr(entry, "stencil_generator", None)
-    if _is_nonlinear(gen):
-        raise NotPortedError("nonlinear (FAS) operators")
-    if _is_variable(gen):
-        raise NotPortedError("variable-coefficient operators")
+    """The entry's stencil, a periodic one as its constant view."""
     stencil = entry.generate_stencil()
     if isinstance(stencil, periodic.PeriodicStencil):
         stencil = stencil.as_constant()
     return stencil
+
+
+def _center_plane(offsets, planes):
+    """The zero-offset plane of a variable stencil (the last one listed)."""
+    center = None
+    for o, p in zip(offsets, planes):
+        if all(x == 0 for x in o):
+            center = p
+    return center
 
 
 class CycleLowering:
@@ -82,10 +97,34 @@ class CycleLowering:
         self._dense_specs = {}
         self._block_specs = {}
         self._center_inv_cache = {}
+        self._plane_cache = {}
+        self._diagonal_inv_cache = {}
 
     # ------------------------------------------------------------------
     # Operator application helpers
     # ------------------------------------------------------------------
+
+    def _grid_key(self, gen, grid):
+        """Cache key of a generator on a grid.  The caches keep `gen`
+        itself, so its id stays its own while the entry lives; the grid is
+        keyed by content, since every individual builds its own grids."""
+        return (id(gen), grid.level, tuple(grid.size), tuple(grid.spacing))
+
+    def _coefficient_planes(self, operator: base.Operator):
+        """(offsets, planes) of a variable operator as tensors in the
+        lowering's dtype on its device, made once per generator and grid."""
+        gen = operator.stencil_generator
+        key = self._grid_key(gen, operator.grid)
+        if key not in self._plane_cache:
+            offsets, planes = gen.generate_coefficient_arrays(operator.grid)
+            np_dtype = numpy_dtype(self.dtype)
+            self._plane_cache[key] = (gen, tuple(offsets), [
+                torch.from_numpy(np.ascontiguousarray(np.asarray(p, dtype=np_dtype))).to(
+                    self.device)
+                for p in planes
+            ])
+        _, offsets, planes = self._plane_cache[key]
+        return offsets, planes
 
     def entry_apply(self, entry, field):
         """Apply one scalar block entry of a system operator to a field."""
@@ -95,9 +134,10 @@ class CycleLowering:
             return field
         gen = getattr(entry, "stencil_generator", None)
         if _is_nonlinear(gen):
-            raise NotPortedError("nonlinear (FAS) operators")
+            raise RuntimeError(
+                "Nonlinear entries must be applied through system_apply with the iterate")
         if isinstance(entry, base.Operator) and _is_variable(gen):
-            raise NotPortedError("variable-coefficient operators")
+            return sops.apply_variable_stencil(field, *self._coefficient_planes(entry))
         stencil = entry.generate_stencil()
         if stencil is None:
             raise RuntimeError(f"Entry {entry!r} has no stencil")
@@ -108,9 +148,13 @@ class CycleLowering:
         for row in operator.entries:
             acc = None
             for entry, field in zip(row, state):
-                if isinstance(entry, base.ZeroOperator):
+                gen = getattr(entry, "stencil_generator", None)
+                if _is_nonlinear(gen):
+                    term = gen.apply(field, entry.grid)
+                elif isinstance(entry, base.ZeroOperator):
                     continue
-                term = self.entry_apply(entry, field)
+                else:
+                    term = self.entry_apply(entry, field)
                 acc = term if acc is None else acc + term
             out.append(acc if acc is not None else torch.zeros_like(state[0]))
         return tuple(out)
@@ -152,39 +196,93 @@ class CycleLowering:
     # Smoothers: Inverse(B) · r
     # ------------------------------------------------------------------
 
-    def _elementwise_diagonal_inverse(self, operator: system.Operator):
-        """Inverse of the (n,n) matrix of centre coefficients."""
-        key = canonical_string(operator)
-        if key not in self._center_inv_cache:
-            n = len(operator.entries)
+    def _center_values(self, operator: system.Operator):
+        """(mat, None): the (n, n) matrix of centre coefficients, or
+        (None, mats): per-point (..., n, n) matrices when an entry has
+        variable coefficients (from the generator's own float64 or
+        complex128 planes, as the reference)."""
+        n = len(operator.entries)
+        variable = any(
+            _is_variable(getattr(entry, "stencil_generator", None))
+            for row in operator.entries for entry in row
+        )
+        if not variable:
             mat = np.zeros((n, n), dtype=np.complex128)
             for i, row in enumerate(operator.entries):
                 for j, entry in enumerate(row):
-                    if isinstance(entry, base.ZeroOperator):
-                        continue
                     stencil = _constant_stencil(entry)
                     if stencil is not None:
                         mat[i, j] = stencil.center_value()
-            inv = np.linalg.inv(mat)
+            return mat, None
+        shape = operator.entries[0][0].grid.interior_shape
+        mats = np.zeros(tuple(shape) + (n, n), dtype=np.complex128)
+        for i, row in enumerate(operator.entries):
+            for j, entry in enumerate(row):
+                gen = getattr(entry, "stencil_generator", None)
+                if _is_variable(gen):
+                    offsets, planes = gen.generate_coefficient_arrays(entry.grid)
+                    for o, p in zip(offsets, planes):
+                        if all(x == 0 for x in o):
+                            mats[..., i, j] += p
+                else:
+                    stencil = _constant_stencil(entry)
+                    if stencil is not None:
+                        mats[..., i, j] += stencil.center_value()
+        return None, mats
+
+    def _elementwise_diagonal_inverse(self, operator: system.Operator):
+        """("const", inv): the inverse (n, n) centre matrix, or
+        ("planes", planes): planes[i][j] the per-point inverse as a tensor,
+        None for a structurally zero coupling."""
+        key = ("ed", canonical_string(operator))
+        if key not in self._center_inv_cache:
+            mat, mats = self._center_values(operator)
+            inv = np.linalg.inv(mat if mats is None else mats)
             if not dtype_is_complex(self.dtype):
                 inv = np.real(inv)
-            self._center_inv_cache[key] = inv
+            if mats is None:
+                result = ("const", inv)
+            else:
+                np_dtype = numpy_dtype(self.dtype)
+                n = inv.shape[-1]
+                result = ("planes", [
+                    [
+                        torch.from_numpy(np.ascontiguousarray(inv[..., i, j], dtype=np_dtype)).to(
+                            self.device)
+                        if np.any(inv[..., i, j]) else None
+                        for j in range(n)
+                    ]
+                    for i in range(n)
+                ])
+            self._center_inv_cache[key] = result
         return self._center_inv_cache[key]
 
     def _diagonal_inverses(self, operator: system.Operator):
-        return [
-            sops.scalar(1.0 / _constant_stencil(row[i]).center_value())
-            for i, row in enumerate(operator.entries)
-        ]
+        """Per field 1/diag(A_ii): a number for a constant entry, a plane
+        tensor for a variable one."""
+        invs = []
+        for i, row in enumerate(operator.entries):
+            entry = row[i]
+            gen = getattr(entry, "stencil_generator", None)
+            if not _is_variable(gen):
+                invs.append(sops.scalar(1.0 / _constant_stencil(entry).center_value()))
+                continue
+            key = self._grid_key(gen, entry.grid)
+            if key not in self._diagonal_inv_cache:
+                center = _center_plane(*gen.generate_coefficient_arrays(entry.grid))
+                inv = np.asarray(1.0 / center, dtype=numpy_dtype(self.dtype))
+                self._diagonal_inv_cache[key] = (
+                    gen, torch.from_numpy(np.ascontiguousarray(inv)).to(self.device))
+            invs.append(self._diagonal_inv_cache[key][1])
+        return invs
 
     def _block_solve_spec(self, operator: system.Operator):
+        """A block smoother's local solve.  As the reference, it is built
+        from `entry.generate_stencil()`: for a variable operator the
+        constant stencil sampled at the generator's `position`, for a
+        nonlinear one its linearisation at u = 0."""
         key = canonical_string(operator)
         if key not in self._block_specs:
-            for row in operator.entries:
-                for entry in row:
-                    gen = getattr(entry, "stencil_generator", None)
-                    if _is_nonlinear(gen) or _is_variable(gen):
-                        raise NotPortedError("block smoothers of non-constant operators")
             entries = [[entry.generate_stencil() for entry in row] for row in operator.entries]
             self._block_specs[key] = smoothers.build_block_solve_spec(
                 entries,
@@ -195,20 +293,61 @@ class CycleLowering:
             )
         return self._block_specs[key]
 
-    def smoother_apply(self, smoothing_operator, r_state: Sequence) -> Tuple:
-        """Apply B^{-1} to the residual state for a smoothing operator B."""
+    def smoother_apply(self, smoothing_operator, r_state: Sequence, u_state=None) -> Tuple:
+        """Apply B^{-1} to the residual state for a smoothing operator B.
+        `u_state`, the current iterate, is needed by the nonlinear (FAS)
+        point solves, whose local Jacobian depends on u."""
         B = smoothing_operator
         if isinstance(B, system.Diagonal):
             return smoothers.decoupled_jacobi_apply(r_state, self._diagonal_inverses(B.operand))
         if isinstance(B, system.ElementwiseDiagonal):
-            return smoothers.collective_jacobi_apply(
-                r_state, self._elementwise_diagonal_inverse(B.operand)
-            )
+            nonlinear = self._nonlinear_entries(B.operand)
+            if nonlinear is not None:
+                return self._nonlinear_point_solve(nonlinear, r_state, u_state, newton_steps=None)
+            kind, data = self._elementwise_diagonal_inverse(B.operand)
+            if kind == "const":
+                return smoothers.collective_jacobi_apply(r_state, data)
+            return smoothers.collective_jacobi_apply_variable(r_state, data)
         if isinstance(B, system.Operator):
             return self._block_solve_spec(B).apply(r_state)
         if isinstance(B, base.Addition) and isinstance(B.operand2, system.Jacobian):
-            raise NotPortedError("FAS Newton smoothing")
+            # FAS Newton smoother D + J: n Newton steps on the point-local
+            # nonlinear equation.  On a linear operator it degenerates to
+            # collective Jacobi.
+            jacobian = B.operand2
+            nonlinear = self._nonlinear_entries(jacobian.operand)
+            if nonlinear is None:
+                return self.smoother_apply(
+                    system.ElementwiseDiagonal(jacobian.operand), r_state, u_state)
+            return self._nonlinear_point_solve(
+                nonlinear, r_state, u_state, newton_steps=jacobian.n_newton_steps)
         raise RuntimeError(f"Cannot apply smoother {B!r}")
+
+    def _nonlinear_point_solve(self, gens, r_state, u_state, newton_steps):
+        """Point-local solve of L_c·δ + N(u+δ) − N(u) = r per field.
+
+        Picard (newton_steps None): δ = r / (L_c + N'(u)) with the
+        nonlinearity frozen; Newton: n Newton iterations of the scalar
+        local equation, n = 1 reducing to the same formula."""
+        if u_state is None:
+            raise RuntimeError("Nonlinear smoothing requires the current iterate")
+        out = []
+        for entry, r, u in zip(gens, r_state, u_state):
+            if entry is None:
+                out.append(r)
+                continue
+            gen, grid = entry
+            center = gen.linear_center(grid)
+            if newton_steps is None:
+                delta = r / (center + gen.derivative_diag(u))
+            else:
+                n_u = gen.nonlinear_term(u)
+                delta = torch.zeros_like(r)
+                for _ in range(int(newton_steps)):
+                    residual_loc = r - center * delta - (gen.nonlinear_term(u + delta) - n_u)
+                    delta = delta + residual_loc / (center + gen.derivative_diag(u + delta))
+            out.append(delta)
+        return tuple(out)
 
     # ------------------------------------------------------------------
     # Coarse-grid solver
@@ -226,23 +365,25 @@ class CycleLowering:
                         mats.append(None)
                         continue
                     gen = getattr(entry, "stencil_generator", None)
-                    if _is_nonlinear(gen) or _is_variable(gen):
-                        raise NotPortedError("dense coarse solves of non-constant operators")
-                    mats.append(
-                        coarse_solve.assemble_scalar_matrix(
-                            entry.generate_stencil(), entry.grid.interior_shape
-                        )
-                    )
+                    if _is_variable(gen):
+                        mats.append(coarse_solve.assemble_scalar_matrix(
+                            None, entry.grid.interior_shape,
+                            planes=gen.generate_coefficient_arrays(entry.grid)))
+                    else:
+                        mats.append(coarse_solve.assemble_scalar_matrix(
+                            entry.generate_stencil(), entry.grid.interior_shape))
                 entry_matrices.append(mats)
             self._dense_specs[key] = coarse_solve.build_dense_solve_spec(
                 entry_matrices, field_shapes, self.dtype, self.device
             )
         return self._dense_specs[key]
 
-    def cgs_apply(self, solver: base.CoarseGridSolver, r_state: Sequence) -> Tuple:
+    def cgs_apply(self, solver: base.CoarseGridSolver, r_state: Sequence,
+                  rhs_expr=None, ev=None) -> Tuple:
         expr = solver.expression
-        if self._nonlinear_entries(solver.operator) is not None:
-            raise NotPortedError("nonlinear (FAS) coarse-grid solves")
+        nonlinear = self._nonlinear_entries(solver.operator)
+        if nonlinear is not None:
+            return self._nonlinear_coarse_solve(solver.operator, nonlinear, r_state, rhs_expr, ev)
         if expr is None:
             return self._dense_spec(solver.operator).apply(r_state)
         if isinstance(expr, KrylovSubspaceMethod):
@@ -253,6 +394,35 @@ class CycleLowering:
             # (multi-run level splitting): run it once on (0, r).
             return expr.apply_as_solver(self, tuple(r_state))
         raise RuntimeError(f"Unsupported coarse-grid solver expression {expr!r}")
+
+    # The reference's nonlinear coarsest solve: 200 Picard sweeps damped by
+    # 0.8 (the FAS template's CGS@coarsest).
+    NONLINEAR_COARSE_SWEEPS = 200
+    NONLINEAR_COARSE_DAMPING = 0.8
+
+    def _nonlinear_coarse_solve(self, operator, nonlinear, r_state, rhs_expr, ev):
+        """FAS coarsest solve, started from the restricted solution R·u: the
+        τ-corrected right-hand side is R·r + A_c(R·u), and a start from zero
+        would leave a bias that stalls the cycle at a wrong fixed point.
+        R·u is the operand of the rhs's nonlinear operator product."""
+        u = None
+        if rhs_expr is not None and ev is not None and isinstance(rhs_expr, base.Addition):
+            for candidate in (rhs_expr.operand2, rhs_expr.operand1):
+                if (
+                    isinstance(candidate, base.Multiplication)
+                    and isinstance(candidate.operand1, system.Operator)
+                    and self._nonlinear_entries(candidate.operand1) is not None
+                ):
+                    u = tuple(ev(candidate.operand2))
+                    break
+        if u is None:
+            u = tuple(torch.zeros_like(r) for r in r_state)
+        damping = self.NONLINEAR_COARSE_DAMPING
+        for _ in range(self.NONLINEAR_COARSE_SWEEPS):
+            r = sops.tree_sub(tuple(r_state), self.system_apply(operator, u))
+            corr = self._nonlinear_point_solve(nonlinear, r, u, newton_steps=None)
+            u = tuple(x + damping * c for x, c in zip(u, corr))
+        return u
 
     # ------------------------------------------------------------------
     # Main recursive evaluation
@@ -321,9 +491,13 @@ class CycleLowering:
         if isinstance(node, base.Multiplication):
             op1 = node.operand1
             if isinstance(op1, base.Inverse):
-                return self.smoother_apply(op1.operand, ev(node.operand2))
+                u_state = (
+                    ev(node.operand2.approximation)
+                    if isinstance(node.operand2, base.Residual) else None
+                )
+                return self.smoother_apply(op1.operand, ev(node.operand2), u_state)
             if isinstance(op1, base.CoarseGridSolver):
-                return self.cgs_apply(op1, ev(node.operand2))
+                return self.cgs_apply(op1, ev(node.operand2), node.operand2, ev)
             if isinstance(op1, KrylovSubspaceMethod):
                 apply_a = partial(self.system_apply, op1.operator)
                 return krylov.SOLVERS[op1.name](
@@ -373,7 +547,7 @@ class CycleLowering:
         red-black).  Shared by the IR walk and the cycle VM."""
         if kind == "single":
             r = sops.tree_sub(tuple(f_val), self.system_apply(A, u_cur))
-            corr = self.smoother_apply(B, r)
+            corr = self.smoother_apply(B, r, u_cur)
             return tuple(x + omega * c for x, c in zip(u_cur, corr))
         fused = self._try_fused_rb_sweep(B, A, u_cur, f_val, omega)
         if fused is not None:
@@ -381,7 +555,7 @@ class CycleLowering:
         masks_per_field = [sops.red_black_masks(tuple(x.shape), x.dtype, x.device) for x in u_cur]
         for color in range(2):
             r = sops.tree_sub(tuple(f_val), self.system_apply(A, u_cur))
-            corr = self.smoother_apply(B, r)
+            corr = self.smoother_apply(B, r, u_cur)
             u_cur = tuple(
                 x + omega * masks[color] * c
                 for x, c, masks in zip(u_cur, corr, masks_per_field)

@@ -195,7 +195,11 @@ class CycleVM:
                 A = mg.generate_system_operator(
                     problem.equations, problem.operators, problem.fields, level, i, grids,
                 )
-                self._cgs_opcode(base.CoarseGridSolver("CGS", A, None), i)
+                try:
+                    self._cgs_opcode(base.CoarseGridSolver("CGS", A, None), i)
+                except _NotTranslatable:
+                    # A nonlinear (FAS) coarsest operator has no CGS branch.
+                    pass
                 break
             A, R, P = mg.generate_operators_on_level(
                 problem.equations, problem.operators, problem.fields, level, i, grids, coarse,

@@ -1,8 +1,9 @@
 """Carry the reference's arrays across to the port.
 
 For this system the reference's "weights" are the evaluation state
-`(u, f)` as numpy, a cycle-VM `Program` (opcodes, ω, length), and the
-numpy matrices a `DenseSolveSpec.inv` or `BlockSolveSpec.inv_l` holds.
+`(u, f)` as numpy, a cycle-VM `Program` (opcodes, ω, length), the numpy
+matrices a `DenseSolveSpec.inv` or `BlockSolveSpec.inv_l` holds, and the
+coefficient planes of a variable-coefficient stencil generator.
 These functions turn them into the port's tensors and specs on a given
 device and dtype, so a test can feed the JAX package's own data to both
 sides.  They read plain numpy attributes and import nothing of JAX.
@@ -24,6 +25,18 @@ def state_to_torch(state, device, dtype):
     np_dtype = numpy_dtype(dtype)
     return tuple(
         torch.from_numpy(np.array(x, dtype=np_dtype)).to(device) for x in state
+    )
+
+
+def planes_to_torch(offsets_and_planes, device, dtype):
+    """(offsets, planes) of a generator's `generate_coefficient_arrays`, as
+    numpy, with the planes cast to `dtype` on `device` (the cast the
+    lowering makes), so both packages apply the same coefficients."""
+    offsets, planes = offsets_and_planes
+    np_dtype = numpy_dtype(dtype)
+    return (
+        tuple(tuple(int(o) for o in offset) for offset in offsets),
+        [torch.from_numpy(np.array(p, dtype=np_dtype)).to(device) for p in planes],
     )
 
 

@@ -19,13 +19,26 @@ from evostencils_torch import dtype_is_complex, numpy_dtype
 from evostencils_torch.stencils import periodic
 
 
-def assemble_scalar_matrix(stencil, interior_shape: Tuple[int, ...]) -> np.ndarray:
-    """Dense matrix of a constant or periodic stencil operator with
-    homogeneous Dirichlet boundary (couplings leaving the interior drop)."""
+def assemble_scalar_matrix(stencil, interior_shape: Tuple[int, ...], planes=None) -> np.ndarray:
+    """Dense matrix of a constant, periodic or variable stencil operator with
+    homogeneous Dirichlet boundary (couplings leaving the interior drop).
+    `planes` = (offsets, coefficient planes) takes the variable branch."""
     n = int(np.prod(interior_shape))
     A = np.zeros((n, n), dtype=np.complex128)
     grids = np.meshgrid(*[np.arange(s) for s in interior_shape], indexing="ij")
     flat_index = np.ravel_multi_index([g.ravel() for g in grids], interior_shape)
+
+    if planes is not None:
+        offsets, coeff_planes = planes
+        for offset, plane in zip(offsets, coeff_planes):
+            target = [g.ravel() + o for g, o in zip(grids, offset)]
+            valid = np.ones(n, dtype=bool)
+            for t, s in zip(target, interior_shape):
+                valid &= (t >= 0) & (t < s)
+            rows = flat_index[valid]
+            cols = np.ravel_multi_index([t[valid] for t in target], interior_shape)
+            A[rows, cols] += np.asarray(plane).ravel()[valid]
+        return A
     pstencil = periodic.lift(stencil)
     period = pstencil.period
     cell_of_point = sum(

@@ -4,8 +4,10 @@ evostencils_tpu/ops/stencil_ops.py).
 Grid functions are dense tensors over the interior nodes of a structured
 grid with homogeneous Dirichlet boundaries.  A constant stencil is a sum of
 shifted views of the zero-padded field, summed in the stencil's entry order
-as the reference does.  Plain torch: the only hand-written kernel on this
-path is the fused red-black sweep (ops/rb_sweep.py).
+as the reference does; a variable-coefficient stencil is the same sum with
+one coefficient plane per offset in place of the scalar.  Plain torch: the
+only hand-written kernel on these paths is the fused red-black sweep
+(ops/rb_sweep.py), which takes constant 2D stencils only.
 """
 
 from __future__ import annotations
@@ -54,6 +56,24 @@ def apply_constant_stencil(u: torch.Tensor, stencil: constant.Stencil) -> torch.
     out = None
     for offset, value in stencil.entries:
         term = scalar(value) * shifted_view(padded, offset, reach, shape)
+        out = term if out is None else out + term
+    return out
+
+
+def variable_reach(offsets) -> Tuple[int, ...]:
+    """Per-axis reach of a variable stencil's offsets."""
+    return tuple(max(abs(o[a]) for o in offsets) for a in range(len(offsets[0])))
+
+
+def apply_variable_stencil(u: torch.Tensor, offsets, planes) -> torch.Tensor:
+    """Variable-coefficient stencil: y[x] = Σ_o p_o[x] · u[x+o], one
+    coefficient plane per offset, summed in offset order."""
+    reach = variable_reach(offsets)
+    padded = pad_zeros(u, reach)
+    shape = u.shape
+    out = None
+    for offset, plane in zip(offsets, planes):
+        term = plane * shifted_view(padded, offset, reach, shape)
         out = term if out is None else out + term
     return out
 
@@ -114,6 +134,18 @@ def numpy_apply_constant_stencil(u: np.ndarray, stencil: constant.Stencil) -> np
     for offset, value in stencil.entries:
         index = tuple(slice(r + o, r + o + n) for r, o, n in zip(reach, offset, u.shape))
         out += value * padded[index]
+    return out
+
+
+def numpy_apply_variable_stencil(u: np.ndarray, offsets, planes) -> np.ndarray:
+    """Host-side variable-coefficient stencil in the array's own dtype
+    (the exact residual of a variable operator between restarted stages)."""
+    reach = variable_reach(offsets)
+    padded = np.pad(u, [(r, r) for r in reach])
+    out = np.zeros_like(u)
+    for offset, plane in zip(offsets, planes):
+        index = tuple(slice(r + o, r + o + n) for r, o, n in zip(reach, offset, u.shape))
+        out += np.asarray(plane, dtype=u.dtype) * padded[index]
     return out
 
 

@@ -11,10 +11,10 @@ of evostencils_tpu/problems/helmholtz.py).
   * generalization ladder: k = 80·2^i with h·k ≈ 0.625 fixed, i.e.
     max_level grows with k.
 
-Boundaries are homogeneous Dirichlet.  The reference's `boundary="robin"`
-folds first-order radiation conditions into a position-dependent
-coefficient plane (stencils/gallery.Helmholtz2DRobin); this port applies
-no variable-coefficient stencils yet, so it raises NotPortedError.
+Boundaries are homogeneous Dirichlet by default.  `boundary="robin"` folds
+first-order radiation conditions into a position-dependent complex centre
+plane (stencils/gallery.Helmholtz2DRobin), for M and for the outer A alike:
+both become variable-coefficient operators.
 """
 
 from __future__ import annotations
@@ -24,7 +24,6 @@ import math
 import numpy as np
 import torch
 
-from evostencils_torch import NotPortedError
 from evostencils_torch.ir import base
 from evostencils_torch.problems.api import Problem
 from evostencils_torch.stencils import gallery
@@ -46,16 +45,15 @@ def max_level_for_k(k: float, hk: float = 0.625) -> int:
 
 def helmholtz_2d(min_level=3, max_level=7, k=80.0, shift=complex(1.0, 0.5),
                  boundary="dirichlet", dtype=None) -> Problem:
-    if boundary == "robin":
-        raise NotPortedError("Helmholtz with Robin boundaries (variable-coefficient stencils)")
-    if boundary != "dirichlet":
+    if boundary not in ("dirichlet", "robin"):
         raise ValueError(f"Unknown boundary {boundary!r}")
+    generator = gallery.Helmholtz2DRobin if boundary == "robin" else gallery.Helmholtz2D
 
     def preconditioner_factory(level, params):
-        return gallery.Helmholtz2D(params.get("k", k), params.get("shift", shift))
+        return generator(params.get("k", k), params.get("shift", shift))
 
     def outer_factory(level, params):
-        return gallery.Helmholtz2D(params.get("k", k), 1.0)
+        return generator(params.get("k", k), 1.0)
 
     return Problem(
         name="2D_FD_Helmholtz",

@@ -2,11 +2,13 @@
 """Evolve multigrid solvers with the PyTorch/CUDA port (the counterpart of
 scripts/optimize.py).
 
-Runs genetic programming over the multigrid grammar for 2D Poisson or 2D
-Helmholtz through evostencils_torch on the GPU, every fitness evaluation on the card
-(float32 Poisson with the hand-written red-black sweep kernel; Helmholtz in
-a complex dtype, the evolved cycle preconditioning BiCGStab), and writes
-the reference's artifacts:
+Runs genetic programming over the multigrid grammar for every problem
+family of the reference (2D and 3D Poisson, variable-coefficient Poisson,
+linear elasticity, 2D Helmholtz and the nonlinear FAS problem) through
+evostencils_torch on the GPU, every fitness evaluation on the card (float32
+2D Poisson with the hand-written red-black sweep kernel; Helmholtz in a
+complex dtype, the evolved cycle preconditioning BiCGStab; FAS with the FAS
+grammar), and writes the reference's artifacts:
 `individual_j.txt` (hall of fame as grammar strings), `program.txt`,
 `logbooks.p`, `populations.p` and, with --tune, `individual_0_tuned.txt` or
 `individual_0_tune_rejected.txt`.  Checkpoints pickle evostencils_torch
@@ -20,6 +22,13 @@ Examples:
   python3 scripts/torch_optimize.py --problem helmholtz --helmholtz-k0 20 \\
       --min-level 3 --max-level 5 --dtype complex128 --method sogp \\
       --ladder-rungs 1 --outer-cap 500 --mu 8 --lambda 8 --generations 10
+  python3 scripts/torch_optimize.py --problem fas --method sogp --mu 4 \\
+      --lambda 4 --generations 1 --tune
+
+--tune runs the gradient ω tuner on every family, as the reference does.  Its
+probe assumes a linear cycle: the reference records that it made its FAS
+champion worse (VERDICT.md), and a tuned string whose ρ grew is written as
+rejected.
 
 Without CUDA it stops unless --cpu is given.  Not ported yet (flags of
 scripts/optimize.py left out): --model-based, --problem-file, --knowledge,
@@ -61,7 +70,9 @@ class Run(NamedTuple):
 def parse_arguments(argv=None):
     parser = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    parser.add_argument("--problem", default="poisson2d", choices=["poisson2d", "helmholtz"])
+    parser.add_argument("--problem", default="poisson2d",
+                        choices=["poisson2d", "poisson3d", "poisson2d_var",
+                                 "elasticity", "helmholtz", "fas"])
     parser.add_argument("--method", default="nsga2",
                         choices=["nsga2", "nsga3", "sogp", "random"])
     parser.add_argument("--mu", type=int, default=8)
@@ -69,11 +80,14 @@ def parse_arguments(argv=None):
     parser.add_argument("--generations", type=int, default=50)
     parser.add_argument("--generalization-interval", type=int, default=150)
     parser.add_argument("--min-level", type=int, default=None,
-                        help="default 5 (helmholtz: 3)")
+                        help="default 5 (helmholtz: 3; the reference's level "
+                             "mapping of build_named_problem applies)")
     parser.add_argument("--max-level", type=int, default=None,
                         help="default 9 (helmholtz: the level with h·k ≈ 0.625)")
     parser.add_argument("--levels-per-run", type=int, default=None)
     parser.add_argument("--evaluation-samples", type=int, default=3)
+    parser.add_argument("--population-initialization-factor", type=int, default=4,
+                        help="the random initial population is this many times μ")
     parser.add_argument("--crossover-probability", type=float, default=0.7)
     parser.add_argument("--mutation-probability", type=float, default=0.3)
     parser.add_argument("--max-local-system-size", type=int, default=8)
@@ -89,7 +103,8 @@ def parse_arguments(argv=None):
                         help="seed a textbook V(PRE,POST) cycle at relaxation "
                              "OMEGA into the initial population (repeatable); "
                              "an optional 4th field picks the smoother "
-                             "production (collective_jacobi by default)")
+                             "production (collective_jacobi by default; "
+                             "jacobi_picard or jacobi_newton for fas)")
     parser.add_argument("--continue-from-checkpoint", action="store_true")
     parser.add_argument("--seed", type=int, default=None)
     parser.add_argument("--output", default=None, help="result directory")
@@ -157,18 +172,19 @@ def _seed_individuals(args, problem):
         )
         from evostencils_torch.utils.champions import omega_index
 
+        fas = bool(problem.uses_fas)
         _, terminals = generate_primitive_set(
             problem.approximation(), problem.rhs(), problem.dimension,
             problem.coarsening_factors, problem.max_level, problem.equations,
             problem.operators, problem.fields, depth=problem.max_level - problem.min_level,
-            maximum_local_system_size=args.max_local_system_size,
+            maximum_local_system_size=args.max_local_system_size, FAS=fas,
         )
         for spec in args.seed_textbook:
             parts = spec.split(",")
             pre, post, omega = int(parts[0]), int(parts[1]), float(parts[2])
             kwargs = {"smoother_name": parts[3]} if len(parts) > 3 else {}
             seeds.append(textbook_cycle_string(
-                terminals, pre, post, omega_index=omega_index(omega), **kwargs))
+                terminals, pre, post, omega_index=omega_index(omega), FAS=fas, **kwargs))
     return seeds
 
 
@@ -192,7 +208,8 @@ def _write_artifacts(output_dir, args, best, program, pops, logbooks, hofs):
 
 def _tune(output_dir, optimizer, generator, best):
     """Gradient-tune the best individual's ω (scripts/optimize.py:291-320);
-    publish the tuned string only when ρ did not get worse."""
+    publish the tuned string only when ρ did not get worse (the tuner's
+    probe is a linear error propagation, which a FAS cycle is not)."""
     from evostencils_torch.optimization.relaxation import tune_relaxation_factors
 
     pset = optimizer._pset
@@ -246,6 +263,7 @@ def run(argv=None) -> Run:
     best, program, pops, logbooks, hofs = optimizer.evolutionary_optimization(
         mu_=args.mu,
         lambda_=args.lambda_,
+        population_initialization_factor=args.population_initialization_factor,
         generations=args.generations,
         generalization_interval=args.generalization_interval,
         crossover_probability=args.crossover_probability,

@@ -1,5 +1,7 @@
-"""The CUDA kernel against its plain torch version, and the Krylov solvers
-and a Helmholtz evaluation on the card against the same on the CPU.
+"""The CUDA kernel against its plain torch version, and the Krylov solvers,
+a Helmholtz evaluation and one cycle of each problem family without a
+kernel (variable coefficients, FAS, 3D, elasticity) on the card against the
+same on the CPU.
 
 These tests need an NVIDIA GPU (sm_90a) and skip without one.  The file
 imports nothing of JAX, so it runs on the machine with the card, where
@@ -20,12 +22,15 @@ import torch
 
 from evostencils_torch.backend.evaluation import TorchProgramGenerator
 from evostencils_torch.backend.lowering import CycleLowering
+from evostencils_torch.grammar import gp
 from evostencils_torch.grammar.multigrid import generate_primitive_set
-from evostencils_torch.ir import reference_cycles
+from evostencils_torch.ir import base, reference_cycles, smoother
+from evostencils_torch.ir import partitioning as part
 from evostencils_torch.ops import krylov, rb_sweep
 from evostencils_torch.optimization.optimizer import Optimizer
 from evostencils_torch.ops import stencil_ops as sops
 from evostencils_torch.problems.api import make_grid
+from evostencils_torch.problems import elasticity, fas, poisson
 from evostencils_torch.problems.helmholtz import helmholtz_2d
 from evostencils_torch.problems.poisson import poisson_2d
 from evostencils_torch.stencils import constant, gallery
@@ -190,3 +195,86 @@ def test_k320_champion_count_follows_the_summation_order_on_the_card(cuda, monke
         assert 0.0 < rho < 1.0
     with capsys.disabled():
         print(f"\nk=320 champion on the card, outer iterations by summation order: {counts}")
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _terminals(problem, fas_grammar=False):
+    return generate_primitive_set(
+        problem.approximation(), problem.rhs(), problem.dimension, problem.coarsening_factors,
+        problem.max_level, problem.equations, problem.operators, problem.fields,
+        depth=problem.max_level - problem.min_level, maximum_local_system_size=8,
+        FAS=fas_grammar)
+
+
+def _v_cycle(terminal_list, rhs, factory, partitioning, omega=0.8, index=0):
+    """V(2,2) over every level with the smoother `factory`, an exact
+    coarsest solve."""
+    t = terminal_list[index]
+    u = reference_cycles._smooth(t.approximation, rhs, t.operator, omega, partitioning, 2, factory)
+    f_c = base.Multiplication(t.restriction, base.Residual(t.operator, u, rhs))
+    if index + 1 < len(terminal_list):
+        coarse = _v_cycle(terminal_list, f_c, factory, partitioning, omega, index + 1)
+    else:
+        coarse = base.Multiplication(base.CoarseGridSolver("CGS", t.coarse_operator), f_c)
+    u = base.Cycle(u, rhs, base.Multiplication(t.prolongation, coarse), relaxation_factor=1.0)
+    return reference_cycles._smooth(u, rhs, t.operator, omega, partitioning, 2, factory)
+
+
+def _card_matches_cpu(cuda, problem, cycle, dtype, tolerance, seed=0):
+    """One cycle on the card and on the CPU from the same random iterate
+    and the problem's right-hand side; no kernel launch on the card."""
+    _, f = problem.initial_state(dtype, device="cpu")
+    rng = np.random.default_rng(seed)
+    u0 = tuple(torch.from_numpy(0.1 * rng.standard_normal(tuple(x.shape))).to(dtype) for x in f)
+    expected = CycleLowering(dtype, "cpu").lower(cycle)(u0, f)
+    before = rb_sweep.launches.total()
+    got = CycleLowering(dtype, cuda).lower(cycle)(
+        tuple(x.to(cuda) for x in u0), tuple(x.to(cuda) for x in f))
+    torch.cuda.synchronize()
+    assert rb_sweep.launches.total() == before
+    scale = max(float(e.abs().max()) for e in expected)
+    for g, e in zip(got, expected):
+        assert g.device.type == torch.device(cuda).type
+        assert float((g.cpu() - e).abs().max()) / scale < tolerance
+
+
+@pytest.mark.cuda
+def test_variable_coefficient_cycle_on_the_card_matches_the_cpu(cuda):
+    # V(2,2) red-black collective Jacobi at 511² (levels 5-9), float32.
+    problem = poisson.poisson_2d_variable(5, 9, dtype=torch.float32)
+    cycle = _v_cycle(_terminals(problem)[1], problem.rhs(), smoother.generate_collective_jacobi,
+                     part.RedBlack)
+    _card_matches_cpu(cuda, problem, cycle, torch.float32, 1e-5)
+
+
+@pytest.mark.cuda
+def test_fas_newton_cycle_on_the_card_matches_the_cpu(cuda):
+    # The stored textbook FAS V(2,2) with Newton smoothing at 511², float32.
+    problem = fas.fas_2d(5, 9, dtype=torch.float32)
+    pset, _ = _terminals(problem, fas_grammar=True)
+    with open(os.path.join(ROOT, "artifacts", "fas_textbook_V22_jacobi_newton.txt")) as f:
+        tree = "".join(line for line in f if not line.startswith("#")).strip()
+    cycle = gp.compile_tree(gp.parse_tree(tree, pset), pset)[0]
+    _card_matches_cpu(cuda, problem, cycle, torch.float32, 1e-5)
+
+
+@pytest.mark.cuda
+def test_3d_block_smoother_cycle_on_the_card_matches_the_cpu(cuda):
+    # V(2,2) with a 2×4×1 block smoother at 63³ (levels 2-6), float32.
+    problem = poisson.poisson_3d(2, 6, dtype=torch.float32)
+    cycle = _v_cycle(
+        _terminals(problem)[1], problem.rhs(),
+        lambda A: smoother.generate_collective_block_jacobi(A, ((2, 4, 1),)), part.Single)
+    _card_matches_cpu(cuda, problem, cycle, torch.float32, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factory", [smoother.generate_decoupled_jacobi,
+                                     smoother.generate_collective_jacobi])
+def test_elasticity_cycle_on_the_card_matches_the_cpu(cuda, factory):
+    # V(2,2) red-black at 255² (levels 5-8, two fields), float64.
+    problem = elasticity.linear_elasticity_2d(5, 8, dtype=torch.float64)
+    cycle = _v_cycle(_terminals(problem)[1], problem.rhs(), factory, part.RedBlack)
+    _card_matches_cpu(cuda, problem, cycle, torch.float64, 1e-12)

@@ -163,8 +163,21 @@ def test_problem_family_matches_reference():
 
     named = build_named_problem("helmholtz", 5, 9)
     assert (named.min_level, named.max_level, named.parameters["k"]) == (3, 7, 80.0)
-    with pytest.raises(NotPortedError):
-        helmholtz.helmholtz_2d(boundary="robin")
+    robin = helmholtz.helmholtz_2d(boundary="robin")
+    jax_robin = jax_helmholtz.helmholtz_2d(boundary="robin")
+    grid, jax_grid = robin.finest_grid[0], jax_robin.finest_grid[0]
+    for operator, jax_operator in (
+            (robin.finest_operator().entries[0][0], jax_robin.finest_operator().entries[0][0]),
+            (robin.outer_solver["operator_factory"](7, robin.parameters),
+             jax_robin.outer_solver["operator_factory"](7, jax_robin.parameters))):
+        gen = getattr(operator, "stencil_generator", operator)
+        jax_gen = getattr(jax_operator, "stencil_generator", jax_operator)
+        assert gen.is_variable()
+        offsets, planes = gen.generate_coefficient_arrays(grid)
+        jax_offsets, jax_planes = jax_gen.generate_coefficient_arrays(jax_grid)
+        assert tuple(offsets) == tuple(jax_offsets)
+        for plane, jax_plane in zip(planes, jax_planes):
+            np.testing.assert_array_equal(plane, jax_plane)
     with pytest.raises(ValueError):
         helmholtz.helmholtz_2d(boundary="neumann")
 

@@ -8,7 +8,8 @@ imports the port's modules, scripts/torch_optimize.py,
 scripts/torch_evaluate_helmholtz_ladder.py and chip_smoke (without running
 its main), builds a grammar and compiles a tree through the port (which
 runs the lazy imports inside the IR), builds, compiles and evaluates a
-Helmholtz preconditioner (complex128, the outer BiCGStab solve), runs the
+Helmholtz preconditioner (complex128, the outer BiCGStab solve), evaluates
+a 3D, a variable-coefficient, a linear elasticity and a FAS cycle, runs the
 evolution entry point on the CPU for one generation with --tune, and must
 end with none of them loaded.
 """
@@ -47,6 +48,8 @@ MODULES = [
     "evostencils_torch.problems.api",
     "evostencils_torch.problems.poisson",
     "evostencils_torch.problems.helmholtz",
+    "evostencils_torch.problems.elasticity",
+    "evostencils_torch.problems.fas",
     "evostencils_torch.ops.stencil_ops",
     "evostencils_torch.ops.intergrid",
     "evostencils_torch.ops.coarse_solve",
@@ -119,6 +122,23 @@ t, rho, iterations = generator.generate_and_evaluate(
     reference_cycles.generate_v_cycle(terminals, helmholtz.rhs(), 2, 1, omega=0.6),
     evaluation_samples=1, global_variable_values={{"k": 20.0}})
 assert t < 1e50 and rho < 1.0, (t, rho, iterations)
+from evostencils_torch.problems import fas
+for family in (build_named_problem("poisson3d", 4, 4), build_named_problem("poisson2d_var", 3, 4),
+               build_named_problem("elasticity", 3, 4), fas.fas_2d(3, 4)):
+    _, terminals = generate_primitive_set(
+        family.approximation(), family.rhs(), family.dimension, family.coarsening_factors,
+        family.max_level, family.equations, family.operators, family.fields,
+        depth=family.max_level - family.min_level, maximum_local_system_size=4,
+        FAS=family.uses_fas)
+    if family.uses_fas:
+        cycle = reference_cycles.generate_fas_v_22_cycle_two_grid(
+            terminals[0], family.rhs(), omega=0.8)
+    else:
+        cycle = reference_cycles.generate_v_cycle(terminals, family.rhs(), 1, 1, omega=0.8)
+    t, rho, iterations = TorchProgramGenerator(
+        family, dtype=torch.float32, device="cpu").generate_and_evaluate(
+            cycle, evaluation_samples=1)
+    assert t < 1e50 and 0 < rho < 1.0, (family.name, t, rho, iterations)
 from scripts import torch_optimize
 output = sys.argv[1]
 assert torch_optimize.main(["--cpu", "--min-level", "3", "--max-level", "5", "--mu", "4",

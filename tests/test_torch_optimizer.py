@@ -221,14 +221,47 @@ def test_entry_points_default_to_the_card():
 
 
 def test_named_problems():
-    problem = build_named_problem("poisson2d", 3, 5)
-    assert (problem.name, problem.min_level, problem.max_level) == ("2D_FD_Poisson", 3, 5)
-    helmholtz = build_named_problem("helmholtz")
-    assert (helmholtz.name, helmholtz.min_level, helmholtz.max_level) == ("2D_FD_Helmholtz", 3, 7)
-    for name in ("poisson3d", "poisson2d_var", "elasticity", "fas"):
-        with pytest.raises(NotPortedError):
-            build_named_problem(name)
+    """Every name of the reference's registry builds the reference's
+    (name, min_level, max_level); problem files stay unported."""
+    from evostencils_tpu.problems import build_named_problem as jax_build_named_problem
+
+    for name in ("poisson2d", "poisson3d", "poisson2d_var", "elasticity", "helmholtz", "fas"):
+        for levels in ((), (3, 5), (5, 9), (4, 10)):
+            problem = build_named_problem(name, *levels)
+            reference = jax_build_named_problem(name, *levels)
+            assert (problem.name, problem.min_level, problem.max_level) == (
+                reference.name, reference.min_level, reference.max_level), (name, levels)
     with pytest.raises(ValueError):
         build_named_problem("no_such_problem")
     with pytest.raises(NotPortedError):
         load_problem_file("spec.exa3")
+
+
+FAMILY_LEVELS = {
+    # build_named_problem's mapping: 3D runs two levels lower (2-4 here).
+    "poisson3d": ("4", "4"),
+    "poisson2d_var": ("3", "5"),
+    "elasticity": ("3", "5"),
+    "fas": ("3", "5"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FAMILY_LEVELS))
+def test_evolution_entry_point_runs_every_family(name, tmp_path, monkeypatch):
+    """scripts/torch_optimize.py --cpu, one generation with μ = λ = 2.  FAS
+    keeps its own levels 5-9 in the registry, as in the reference, so the
+    test builds it at 3-5 instead."""
+    from evostencils_torch.problems import fas
+    from scripts import torch_optimize
+
+    if name == "fas":
+        monkeypatch.setattr(torch_optimize, "build_named_problem",
+                            lambda *args: fas.fas_2d(3, 5))
+    lo, hi = FAMILY_LEVELS[name]
+    run = torch_optimize.run([
+        "--cpu", "--problem", name, "--min-level", lo, "--max-level", hi, "--method", "sogp",
+        "--mu", "2", "--lambda", "2", "--generations", "1", "--evaluation-samples", "1",
+        "--seed", "2", "--output", str(tmp_path)])
+    assert run.generator.uses_FAS() == (name == "fas")
+    assert run.optimizer._total_number_of_evaluations >= 2
+    assert (tmp_path / "program.txt").is_file() and (tmp_path / "individual_0.txt").is_file()

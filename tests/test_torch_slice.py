@@ -42,6 +42,8 @@ from evostencils_torch.ir import base, krylov, reference_cycles
 from evostencils_torch.backend.evaluation import TorchProgramGenerator
 from evostencils_torch.backend.lowering import CycleLowering
 from evostencils_torch.backend.vm import CycleVM
+from evostencils_torch.optimization.optimizer import Optimizer
+from evostencils_torch.problems import load_problem_file
 from evostencils_torch.problems.poisson import poisson_2d
 
 INFINITY = 1e100
@@ -156,11 +158,20 @@ def test_unported_feature_raises_and_is_never_scored_infinity():
     assert not issubclass(NotPortedError, (RuntimeError, ValueError, NotImplementedError))
     side = port_side(poisson_2d(3, 5, dtype=torch.float64))
     cycle = side.expressions([])[0]
-    # FAS evaluation is not ported: it must raise, not score ∞.
+    # The model-based (LFA and roofline) fitness is not ported: it must
+    # raise, not score ∞; so must problem files.
+    port = TorchProgramGenerator(side.problem, dtype=torch.float64, device="cpu")
+    optimizer = Optimizer.for_problem(side.problem, program_generator=port)
+    with pytest.raises(NotPortedError):
+        optimizer.estimate_single_objective(cycle)
+    with pytest.raises(NotPortedError):
+        load_problem_file("spec.exa2")
+    # FAS evaluates now: a linear problem run as FAS (one stage, no power
+    # iteration, no VM) still scores the cycle.
     fas_problem = side.problem._clone(uses_fas=True)
     port = TorchProgramGenerator(fas_problem, dtype=torch.float64, device="cpu")
-    with pytest.raises(NotPortedError):
-        port.generate_and_evaluate(cycle, evaluation_samples=1)
+    _, rho, _ = port.generate_and_evaluate(cycle, evaluation_samples=1)
+    assert 0 < rho < 1 and (port.vm_hits, port.vm_misses) == (0, 1)
     with pytest.raises(NotPortedError):
         TorchProgramGenerator(side.problem, dtype=torch.float16, device="cpu")
     # A Krylov coarse-grid solver and a complex dtype are ported.

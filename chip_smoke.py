@@ -125,6 +125,27 @@ printing its wall seconds, its ms per iteration, the kernel's launches
    cycle, the top operations by device time; the tables go to
    chiprun_out/profile_<family>_{eval,cycle}.txt.
 
+The staged deep solves and the models:
+
+18. headline: scripts/torch_headline_1024.py in this process at 1023²
+   (levels 6-10), float32, --predicted, --repeats cut from 9 to 3: textbook
+   V(2,1), V(2,2) and artifacts/paper_protocol/individual_1_tuned.txt with
+   its stored ω; then one V(2,2) solve through build_fused_staged_solver (no
+   ρ).  Checks: every solve reaches rel ≤ 1e-10 in host IEEE float64; the
+   kernel launched at every smoothed level, 127²-511² (the TPU's
+   whole-array route) and 1023² (its row-blocked route; 63² is the
+   coarsest level, solved dense); a finite positive device time per cycle.
+   Then a predicted V(2,2) at 255² on the card and on the CPU: cycles
+   within ±2, stages within ±1.  The TPU's RESULTS.md R5.8 rows are
+   printed beside, not judged.
+19. models: the LFA ρ of the textbook V(2,2) two-grid cycle at 63² beside
+   its measured ρ, and of the bench champion beside the main path's ρ
+   (printed); scripts/torch_optimize.py --model-based (NSGA-II, μ = λ = 4,
+   2 generations, levels 5-9), whose halls of fame must hold an individual
+   with 0 < ρ < 1 and a positive runtime; the roofline's predicted device
+   time per cycle of the calibration cases at 511² against per_cycle_time
+   on the card, within 2×.
+
 Before the last line it prints the kernels as one JSON object and the card's
 `nvidia-smi` name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -143,6 +164,7 @@ import time
 import numpy as np
 import torch
 
+from evostencils_torch.backend.device_solve import staged_solver_for_expression
 from evostencils_torch.backend.evaluation import TorchProgramGenerator
 from evostencils_torch.grammar import gp
 from evostencils_torch.grammar.multigrid import generate_primitive_set
@@ -158,7 +180,9 @@ from evostencils_torch.problems.helmholtz import helmholtz_2d
 from evostencils_torch.problems.poisson import poisson_2d
 from evostencils_torch.stencils import constant
 from evostencils_torch.utils.champions import apply_stored_omegas, parse_champion_file
-from scripts import torch_evaluate_helmholtz_ladder, torch_optimize
+from scripts import (
+    torch_calibrate_roofline, torch_evaluate_helmholtz_ladder, torch_headline_1024, torch_optimize,
+)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CHAMPION = os.path.join(ROOT, "artifacts", "poisson2d_champion_r2_tuned.txt")
@@ -198,7 +222,6 @@ STENCILS = {
 CHECKED = [(31, 31), (63, 63), (127, 127), (255, 255), (511, 511), (1023, 1023), (161, 96)]
 # The Pallas call each grid size went to on the TPU (whole-array up to
 # 512² cells, row-blocked above: pallas_kernels.py:273), with its timed size.
-WHOLE_ARRAY_CELLS = 512 * 512
 ROLES = {
     "whole_array": ("evostencils_tpu/ops/pallas_kernels.py:238", (511, 511)),  # _rb_sweep_call
     "row_blocked": ("evostencils_tpu/ops/pallas_kernels.py:180", (1023, 1023)),  # _rb_blocked_call
@@ -206,7 +229,7 @@ ROLES = {
 
 
 def role(shape) -> str:
-    return "whole_array" if shape[0] * shape[1] <= WHOLE_ARRAY_CELLS else "row_blocked"
+    return "whole_array" if shape[0] * shape[1] <= rb_sweep.WHOLE_ARRAY_CELLS else "row_blocked"
 
 
 START = time.perf_counter()
@@ -424,7 +447,7 @@ def phase_main_path(failures: list) -> tuple:
         failures.append(f"champion: CPU rho {cpu_rho} vs GPU {champ_rho} beyond 2 %")
     if not abs(cpu_iters - champ_iters) <= 1:
         failures.append(f"champion: CPU iterations {cpu_iters} vs GPU {champ_iters}")
-    return launches_by_role, generator, champion
+    return launches_by_role, generator, champion, champ_rho
 
 
 EVOLVE_ARGS = [
@@ -1168,6 +1191,182 @@ def phase_profile_families(failures: list) -> None:
             failures.append(f"profile_families {name}: no operation ran on the device")
 
 
+# ---------------------------------------------------------------------------
+# The staged deep solves and the models.
+# ---------------------------------------------------------------------------
+
+PAPER_CHAMPION = os.path.join(ARTIFACTS, "paper_protocol", "individual_1_tuned.txt")
+# --repeats cut from the script's 9 to 3 to fit this script's time limit.
+HEADLINE_ARGS = [
+    "--min-level", "6", "--max-level", "10", "--predicted", "--repeats", "3",
+    "--champion", PAPER_CHAMPION,
+    "--json", os.path.join(ROOT, "chiprun_out", "headline_1023.json"),
+]
+# RESULTS.md R5.8: scripts/headline_1024.py --predicted on one TPU v5e.  A
+# cross-check printed beside the card's rows, not a target.
+TPU_R58 = {
+    "textbook V(2,1)": {"rho": 0.080, "cycles": 21, "per_cycle_us": 284.5, "device_ms": 6.33},
+    "textbook V(2,2)": {"rho": 0.061, "cycles": 17, "per_cycle_us": 308.2, "device_ms": 5.60},
+    "individual_1_tuned (tuned ω)": {"rho": 0.0615, "cycles": 18, "per_cycle_us": 230.7,
+                                     "device_ms": 4.51},
+}
+# The smoothed levels of the headline's cycles; 63², its coarsest, takes the
+# dense solve.
+HEADLINE_LEVELS = [(127, 127), (255, 255), (511, 511), (1023, 1023)]
+
+
+def _textbook_solver(problem, pre, post, device, **kwargs):
+    """staged_solver_for_expression on textbook V(pre, post): (solve, f32
+    right-hand side, f64 right-hand side, ρ or None)."""
+    pset, terminal_list = generate_primitive_set(
+        problem.approximation(), problem.rhs(), problem.dimension,
+        problem.coarsening_factors, problem.max_level, problem.equations,
+        problem.operators, problem.fields, depth=problem.max_level - problem.min_level,
+        maximum_local_system_size=8)
+    expr = reference_cycles.generate_v_cycle(terminal_list, problem.rhs(), pre, post)
+    generator = TorchProgramGenerator(problem, dtype=torch.float32, device=device)
+    rho = None
+    if kwargs.pop("predicted", False):
+        rho = generator.generate_and_evaluate(expr, evaluation_samples=1)[1]
+        kwargs.update(rho=rho, calibrate_floor=True)
+    solve, f64_rhs = staged_solver_for_expression(
+        CycleLowering(torch.float32, device), expr, terminal_list[0].operator, problem,
+        generator, lowering64=CycleLowering(torch.float64, device, use_kernels=False),
+        target=1e-10, **kwargs)
+    _, f32 = problem.initial_state(torch.float32, device=device)
+    return solve, f32, f64_rhs, rho
+
+
+def phase_headline(failures: list) -> dict:
+    """scripts/torch_headline_1024.py at 1023² (levels 6-10) with --predicted:
+    textbook V(2,1), V(2,2) and the paper champion with its stored ω; then
+    one fused V(2,2) solve with no ρ (build_fused_staged_solver).  Returns
+    the kernel's launches by grid shape over both.  Then, outside that
+    count, a predicted V(2,2) at 255² on the card and on the CPU."""
+    start = time.perf_counter()
+    rb_sweep.launches.clear()
+    rows = torch_headline_1024.run(HEADLINE_ARGS)
+    problem = poisson_2d(min_level=6, max_level=10, dtype=torch.float32)
+    solve, f32, f64_rhs, _ = _textbook_solver(problem, 2, 2, DEVICE, fused=True)
+    t0 = time.perf_counter()
+    fused = solve(f32, f64_rhs)
+    fused_wall_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    by_shape = dict(rb_sweep.launches)
+
+    repeats = {}
+    for device in (DEVICE, "cpu"):
+        solve, f32, f64_rhs, rho = _textbook_solver(
+            poisson_2d(min_level=4, max_level=8, dtype=torch.float32), 2, 2, device,
+            predicted=True)
+        cycles, rel, stages = solve(f32, f64_rhs)
+        repeats[device] = {"rho": rho, "cycles": cycles, "stages": stages, "rel": rel,
+                           "measured_floor": solve.measured_floor}
+    emit({
+        "phase": "headline", "args": " ".join(HEADLINE_ARGS[:-2]),
+        "rows": rows,
+        "tpu_r58_cross_check": TPU_R58,
+        "fused_v22": {"cycles": fused[0], "rel": fused[1], "stages": fused[2],
+                      "wall_s": fused_wall_s},
+        "predicted_v22_255": repeats,
+        "rb_sweep_launches_by_shape": {f"{r}x{c}": n for (r, c), n in sorted(by_shape.items())},
+        "phase_s": time.perf_counter() - start,
+    })
+    for row in rows:
+        if not row["rel_residual"] <= 1e-10:
+            failures.append(f"headline {row['solver']}: rel {row['rel_residual']} > 1e-10")
+        if not (math.isfinite(row["t_cycle_us"]) and row["t_cycle_us"] > 0):
+            failures.append(f"headline {row['solver']}: device time per cycle {row['t_cycle_us']}")
+    if len(rows) != 3:
+        failures.append(f"headline: {len(rows)} solvers instead of 3")
+    if not fused[1] <= 1e-10:
+        failures.append(f"headline: fused V(2,2) rel {fused[1]} > 1e-10")
+    for shape in HEADLINE_LEVELS:
+        if not by_shape.get(shape):
+            failures.append(f"headline: no kernel launch at {shape[0]}x{shape[1]}")
+    card, cpu = repeats[DEVICE], repeats["cpu"]
+    if not (card["rel"] <= 1e-10 and cpu["rel"] <= 1e-10
+            and abs(card["cycles"] - cpu["cycles"]) <= 2
+            and abs(card["stages"] - cpu["stages"]) <= 1):
+        failures.append(f"headline: predicted V(2,2) at 255² card {card} vs CPU {cpu}")
+    return by_shape
+
+
+MODEL_BASED_ARGS = [
+    "--problem", "poisson2d", "--method", "nsga2", "--mu", "4", "--lambda", "4",
+    "--generations", "2", "--min-level", "5", "--max-level", "9", "--dtype", "float32",
+    "--model-based", "--seed", "3",
+    "--output", os.path.join(ROOT, "chiprun_out", "model_based"),
+]
+CALIBRATION_511 = ("V(2,1)_rb_512", "V(2,2)_rb_512", "V(2,2)_jacobi_512", "smooth4_rb_512")
+
+
+def phase_models(failures: list, champion_rho: float) -> None:
+    """LFA ρ beside measured ρ; a model-based NSGA-II run through the entry
+    point; the roofline's prediction of the calibration cases at 511²
+    against their device time on the card (within 2×)."""
+    from evostencils_torch.models.lfa import ConvergenceEvaluator
+    from evostencils_torch.models.roofline import PerformanceEvaluator
+    from evostencils_torch.utils.timing import per_cycle_time
+
+    start = time.perf_counter()
+    record = {"phase": "models"}
+    # LFA: the textbook V(2,2) two-grid cycle at 63² (levels 5-6, the 31²
+    # coarse grid solved dense) beside its measured ρ; the bench champion
+    # (five levels) beside the main path's ρ.  LFA models at most two
+    # levels cheaply, as the reference (scripts/optimize.py:101-103).
+    two_grid = poisson_2d(min_level=5, max_level=6, dtype=torch.float32)
+    _, terminal_list = generate_primitive_set(
+        two_grid.approximation(), two_grid.rhs(), 2, two_grid.coarsening_factors, 6,
+        two_grid.equations, two_grid.operators, two_grid.fields, depth=1,
+        maximum_local_system_size=8)
+    v22 = reference_cycles.generate_v_cycle(terminal_list, two_grid.rhs(), 2, 2)
+    lfa = ConvergenceEvaluator(2, two_grid.coarsening_factors, two_grid.finest_grid)
+    measured_v22 = TorchProgramGenerator(two_grid, dtype=torch.float32, device=DEVICE)\
+        .generate_and_evaluate(v22, evaluation_samples=1)[1]
+    bench = poisson_2d(min_level=5, max_level=9, dtype=torch.float32)
+    champion, _ = load_champion(bench_pset(bench))
+    t0 = time.perf_counter()
+    lfa_champion = ConvergenceEvaluator(
+        2, bench.coarsening_factors, bench.finest_grid, samples_per_axis=2,
+    ).compute_spectral_radius(champion)
+    record["lfa"] = {
+        "textbook_v22_two_grid_63": {"lfa": lfa.compute_spectral_radius(v22),
+                                      "measured": measured_v22},
+        # 0.0 is LFA's poison: the champion's 3×1 block has a period the
+        # frequency classes of a power-of-2 hierarchy cannot hold.
+        "bench_champion": {"lfa": lfa_champion, "measured": champion_rho,
+                           "lfa_s": time.perf_counter() - t0},
+    }
+
+    t0 = time.perf_counter()
+    result = torch_optimize.run(MODEL_BASED_ARGS)
+    halls = [[list(ind.fitness_values) for ind in hof] for hof in result.halls_of_fame]
+    record["model_based"] = {"args": " ".join(MODEL_BASED_ARGS[:-2]),
+                             "evaluations": result.optimizer._total_number_of_evaluations,
+                             "halls_of_fame": halls, "s": time.perf_counter() - t0}
+    if not any(0.0 < rho < 1.0 and runtime > 0.0 for hof in halls for rho, runtime in hof):
+        failures.append(f"models: no hall of fame holds 0 < ρ < 1 with a runtime: {halls}")
+
+    perf = PerformanceEvaluator()
+    cases = {name: (problem, expr) for name, problem, expr in torch_calibrate_roofline.build_cases()
+             if name in CALIBRATION_511}
+    roofline = {}
+    for name, (problem, expr) in cases.items():
+        step = CycleLowering(torch.float32, DEVICE).lower(expr)
+        u0, f = problem.initial_state(torch.float32, device=DEVICE)
+        measured = per_cycle_time(step, u0, f, iters=50, repeats=3)
+        predicted = perf.estimate_runtime(expr)
+        roofline[name] = {"measured_s": measured, "predicted_s": predicted,
+                          "ratio": predicted / measured}
+        if not 0.5 <= predicted / measured <= 2.0:
+            failures.append(f"models: roofline {name} predicted/measured "
+                            f"{predicted / measured:.3f} outside 2×")
+    record["roofline_511"] = roofline
+    record["phase_s"] = time.perf_counter() - start
+    emit(record)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing was run",
@@ -1177,7 +1376,7 @@ def main() -> int:
     device = phase_device()
     kernel = phase_kernel(failures)
     phase_levels()
-    launches_by_role, generator, champion = phase_main_path(failures)
+    launches_by_role, generator, champion, champion_rho = phase_main_path(failures)
     evolve_launches = phase_evolve(failures)
     phase_profile(generator, champion)
     phase_helmholtz(failures)
@@ -1193,6 +1392,8 @@ def main() -> int:
         "fas_evolve": phase_fas_evolve(failures),
     }
     phase_profile_families(failures)
+    headline_launches = phase_headline(failures)
+    phase_models(failures, champion_rho)
     if failures:
         for failure in failures:
             print(f"chip_smoke FAILED: {failure}", file=sys.stderr)
@@ -1209,6 +1410,8 @@ def main() -> int:
                                        if role(shape) == name),
             # The families the gate refuses: every count is checked to be 0.
             **{f"{phase}_launches": count for phase, count in family_launches.items()},
+            "headline_launches": sum(n for shape, n in headline_launches.items()
+                                     if role(shape) == name),
             "max_abs_err": max(e for s in CHECKED if role(s) == name
                                for e in kernel[s]["max_abs_err"].values()),
             "ms": kernel[timed]["ms"], "plain_ms": kernel[timed]["plain_ms"],

@@ -576,9 +576,15 @@ class TorchProgramGenerator:
         if iterations > self.iteration_limit:
             # Cap breach: time poisoned, ρ and the extrapolated count kept.
             return infinity, rho, iterations
-        # Normalised by the executed iterations of the first stage.
-        t_iter_ms = 1e3 * self._median_time(
-            stage_solve, (u0, f, omegas), evaluation_samples) / stage1_executed
+        # Normalised by the executed iterations of the first stage.  A
+        # device fault while timing poisons the time only: ρ and the count
+        # are already measured.
+        try:
+            t_iter_ms = 1e3 * self._median_time(
+                stage_solve, (u0, f, omegas), evaluation_samples) / stage1_executed
+        except _DEVICE_ERRORS:
+            self._device_failed()
+            return infinity, rho, iterations
         return iterations * t_iter_ms, rho, iterations
 
     # ---- outer-Krylov (Helmholtz) evaluation ----

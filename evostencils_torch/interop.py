@@ -2,8 +2,9 @@
 
 For this system the reference's "weights" are the evaluation state
 `(u, f)` as numpy, a cycle-VM `Program` (opcodes, ω, length), the numpy
-matrices a `DenseSolveSpec.inv` or `BlockSolveSpec.inv_l` holds, and the
-coefficient planes of a variable-coefficient stencil generator.
+matrices a `DenseSolveSpec.inv` or `BlockSolveSpec.inv_l` holds, the
+coefficient planes of a variable-coefficient stencil generator, and the
+constants of a roofline model.
 These functions turn them into the port's tensors and specs on a given
 device and dtype, so a test can feed the JAX package's own data to both
 sides.  They read plain numpy attributes and import nothing of JAX.
@@ -61,3 +62,23 @@ def dense_solve_spec_from_reference(spec, device, dtype) -> DenseSolveSpec:
 def block_solve_spec_from_reference(spec, device, dtype) -> BlockSolveSpec:
     """The port's block-Jacobi solve holding the reference spec's L^{-1}."""
     return BlockSolveSpec(spec.period, spec.n_fields, np.asarray(spec.inv_l), dtype, device)
+
+
+def performance_evaluator_from_reference(evaluator):
+    """The port's roofline model holding a reference evaluator's constants
+    (peak, bandwidth and the fitted factors), so both walk with the same
+    numbers."""
+    from evostencils_torch.models.roofline import PerformanceEvaluator
+
+    return PerformanceEvaluator(
+        peak_performance=evaluator.peak_performance,
+        peak_bandwidth=evaluator.peak_bandwidth,
+        bytes_per_word=evaluator.bytes_per_word,
+        runtime_coarse_grid_solver=evaluator.runtime_coarse_grid_solver,
+        red_black_penalty=evaluator.red_black_penalty,
+        kernel_launch_overhead=evaluator.kernel_launch_overhead,
+        red_black_traffic_factor=evaluator.red_black_traffic_factor,
+        fusion_factor=evaluator.fusion_factor,
+        single_sweep_fusion=evaluator.single_sweep_fusion,
+        intergrid_factor=evaluator.intergrid_factor,
+    )

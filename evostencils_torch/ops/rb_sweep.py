@@ -26,11 +26,17 @@ from evostencils_torch.stencils import constant
 MAX_RADIUS = 4
 # The halo radii csrc/rb_sweep.cu is instantiated for.
 TEMPLATE_RADII = (1, 2, 4)
+# The reference's Pallas routes: whole-array up to 512² cells, row-blocked
+# above, with blocks of 128 rows, up to 16384² cells.
+WHOLE_ARRAY_CELLS = 512 * 512
+BLOCK_ROWS = 128
+MAX_BLOCKED_CELLS = 16384 * 16384
 # Side of the dense coefficient grid the kernel's C entry point reads.
 _SIDE = 2 * MAX_RADIUS + 1
 
 # Kernel launches by grid shape (rows, cols) since the last clear():
-# counted where the kernel launches, nowhere else.
+# counted where the kernel launches, nowhere else (not where a CUDA graph
+# capture records it, nor in the graph's replays).
 launches = collections.Counter()
 
 
@@ -39,15 +45,25 @@ def _stencil_radius(entries) -> int:
 
 
 def supports_rb_sweep(shape, stencil, dtype) -> bool:
-    """The gate: 2D, float32, a real constant stencil within the halo."""
-    return (
+    """The gate: 2D, float32, a real constant stencil within the halo; above
+    512² cells, as the reference's row-blocked route, more than 128 rows and
+    at most 16384² cells (evostencils_tpu/ops/pallas_kernels.py:119-138).
+
+    One difference of route, not of result: up to 512² cells the reference
+    takes any radius, while this kernel is instantiated for radius ≤ 4 only,
+    so a wider stencil takes the plain masked half-sweeps, which compute the
+    same step."""
+    if not (
         len(shape) == 2
         and isinstance(stencil, constant.Stencil)
         and stencil.dimension == 2
         and dtype == torch.float32
         and all(not isinstance(v, complex) for v in stencil.values)
         and _stencil_radius(stencil.entries) <= MAX_RADIUS
-    )
+    ):
+        return False
+    cells = shape[0] * shape[1]
+    return cells <= WHOLE_ARRAY_CELLS or (cells <= MAX_BLOCKED_CELLS and shape[0] > BLOCK_ROWS)
 
 
 def template_radius(radius: int) -> int:
@@ -125,5 +141,7 @@ def red_black_collective_jacobi_sweep(u, f, omega, stencil: constant.Stencil) ->
     )
     if err != 0:
         raise CudaKernelError(f"rb_sweep_f32 did not launch: CUDA error {err}")
-    launches[tuple(u.shape)] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        # A CUDA graph capture records the launch; its replays launch it.
+        launches[tuple(u.shape)] += 1
     return out

@@ -1,11 +1,12 @@
-"""CMA-ES optimization of restriction/prolongation stencil weights
-(a copy of evostencils_tpu/optimization/intergrid_transfer.py that imports
-the port's IR and stencils).
+"""CMA-ES optimization of restriction/prolongation stencil weights (a copy
+of evostencils_tpu/optimization/intergrid_transfer.py that imports the
+port's IR, stencils and LFA model).
 
-`CMAES` is what `optimization.relaxation.tune_outer_relaxation` uses.  The
-reference scores a weight vector by the LFA ρ of a two-grid correction
-(models/lfa.py); the LFA model is not ported, so
-`optimize_intergrid_weights` runs only with a caller's `evaluate`.
+The weight vector parameterizes the R/P stencils of a two-grid correction
+whose spectral radius the LFA model (models/lfa.py, numpy) predicts:
+thousands of evaluations per second, no cycle run in the loop.  A caller
+may pass its own `evaluate` instead.  `CMAES` is also what
+`optimization.relaxation.tune_outer_relaxation` uses.
 
 The CMA-ES itself is self-contained ((μ/μ_w, λ) with rank-μ/rank-one
 covariance adaptation and step-size control, Hansen's standard strategy).
@@ -19,7 +20,6 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
-from evostencils_torch import NotPortedError
 from evostencils_torch.ir import base, smoother, system
 from evostencils_torch.ir import partitioning as part
 from evostencils_torch.stencils import constant
@@ -195,11 +195,11 @@ def optimize_intergrid_weights(
     evaluate: Optional[Callable] = None,
     verbose: bool = False,
 ):
-    """CMA-ES over the (2r+1)^d R and P weights; fitness = `evaluate(weights)`
-    (the reference's default, the LFA ρ of the two-grid correction, is not
-    ported).  Returns (restriction, prolongation, ρ, history)."""
-    if evaluate is None:
-        raise NotPortedError("LFA fitness of intergrid weights (models/lfa.py)")
+    """CMA-ES over the (2r+1)^d R and P weights; fitness = LFA ρ of the
+    two-grid correction.  Returns (restriction, prolongation, ρ, history)."""
+    from evostencils_torch.ir.transformations import invalidate_expression
+    from evostencils_torch.models.lfa import ConvergenceEvaluator
+
     dimension = problem.dimension
     offsets = symmetric_window_offsets(radius, dimension)
     from evostencils_torch.stencils import gallery
@@ -210,6 +210,24 @@ def optimize_intergrid_weights(
         [fw.get(o, 0.0) for o in offsets] + [ml.get(o, 0.0) for o in offsets],
         dtype=float,
     )
+    lfa = ConvergenceEvaluator(
+        dimension, problem.coarsening_factors, problem.finest_grid,
+        samples_per_axis=samples_per_axis,
+    )
+
+    context = two_grid_context(problem)
+
+    def default_evaluate(weights) -> float:
+        r_st, p_st = weights_to_stencils(weights, offsets, dimension)
+        expression = build_two_grid_expression(problem, r_st, p_st,
+                                               context=context)
+        rho = lfa.compute_spectral_radius(expression)
+        invalidate_expression(expression)
+        if rho == 0.0 or not math.isfinite(rho):
+            return 1e6
+        return rho
+
+    evaluate = evaluate or default_evaluate
     es = CMAES(x0, sigma, population_size, seed)
     best = (evaluate(x0), x0)  # the FW/bilinear incumbent is the baseline
     history = [best[0]]

@@ -5,9 +5,10 @@ The evolutionary logic is the reference's, line for line: the same rng
 draws, selection, caching, grouping, ramp and stitching, so with the same
 fitness function both packages evolve the same populations.  What differs:
 `for_problem` builds a `TorchProgramGenerator` on the card; a nested
-coarse-grid solver starts from `torch.zeros_like`; the model-based (LFA and
-roofline) fitness and `visualize_tree` raise NotPortedError; the program
-generator has no `precompile` hook (eager torch compiles nothing).
+coarse-grid solver starts from `torch.zeros_like`; the model-based fitness
+takes the port's LFA model and its roofline with H100 constants
+(models/); the program generator has no `precompile` hook (eager torch
+compiles nothing).
 Checkpoints pickle this package's classes, so they do not load in the
 reference, nor the reference's here.
 
@@ -38,7 +39,6 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from evostencils_torch import NotPortedError
 from evostencils_torch.grammar import gp
 from evostencils_torch.grammar import multigrid as mg_grammar
 from evostencils_torch.ir import system
@@ -309,10 +309,49 @@ class Optimizer:
     # ---- fitness functions (reference program.py:319-453) ----
 
     def estimate_single_objective(self, individual):
-        raise NotPortedError("model-based fitness (LFA and roofline models)")
+        if self.individual_in_cache(individual):
+            return self.get_cached_fitness(individual)
+        self._total_number_of_evaluations += 1
+        try:
+            expression, _ = self.compile_individual(individual)
+        except (MemoryError, RuntimeError):
+            self._failed_evaluations += 1
+            values = (self.infinity,)
+            self.add_individual_to_cache(individual, values)
+            return values
+        rho = self.convergence_evaluator.compute_spectral_radius(expression)
+        if rho == 0.0 or math.isnan(rho) or math.isinf(rho):
+            values = (self.infinity,)
+        elif self.performance_evaluator is None:
+            values = (rho,)
+        elif rho < 1:
+            runtime = self.performance_evaluator.estimate_runtime(expression) * 1e3
+            values = (math.log(self.epsilon) / math.log(rho) * runtime,)
+        else:
+            values = (rho * self.infinity**0.25,)
+        self.add_individual_to_cache(individual, values)
+        return values
 
     def estimate_multiple_objectives(self, individual):
-        raise NotPortedError("model-based fitness (LFA and roofline models)")
+        if self.individual_in_cache(individual):
+            return self.get_cached_fitness(individual)
+        self._total_number_of_evaluations += 1
+        try:
+            expression, _ = self.compile_individual(individual)
+        except (MemoryError, RuntimeError):
+            self._failed_evaluations += 1
+            values = (self.infinity, self.infinity)
+            self.add_individual_to_cache(individual, values)
+            return values
+        rho = self.convergence_evaluator.compute_spectral_radius(expression)
+        if rho == 0.0 or math.isnan(rho) or math.isinf(rho):
+            self._failed_evaluations += 1
+            values = (self.infinity, self.infinity)
+        else:
+            runtime = self.performance_evaluator.estimate_runtime(expression) * 1e3
+            values = (rho, runtime)
+        self.add_individual_to_cache(individual, values)
+        return values
 
     def evaluate_single_objective(self, individual, evaluation_samples=3,
                                   pde_parameter_values=None):
@@ -1023,7 +1062,9 @@ class Optimizer:
 
     @staticmethod
     def visualize_tree(individual, filename):
-        raise NotPortedError("tree drawing (utils/visualization.py)")
+        from evostencils_torch.utils.visualization import draw_tree
+
+        draw_tree(individual, filename)
 
     @staticmethod
     def dump_data_structure(data_structure, file_name):

@@ -30,9 +30,14 @@ probe assumes a linear cycle: the reference records that it made its FAS
 champion worse (VERDICT.md), and a tuned string whose ρ grew is written as
 rejected.
 
+--model-based scores individuals by the LFA ρ and the roofline model's
+time per cycle (evostencils_torch/models/, H100 constants) instead of
+running them, on hierarchies of at most two levels per run, as the
+reference does; --tune is then skipped.
+
 Without CUDA it stops unless --cpu is given.  Not ported yet (flags of
-scripts/optimize.py left out): --model-based, --problem-file, --knowledge,
---mesh and --multihost.
+scripts/optimize.py left out): --problem-file, --knowledge, --mesh and
+--multihost.
 """
 
 import argparse
@@ -91,6 +96,8 @@ def parse_arguments(argv=None):
     parser.add_argument("--crossover-probability", type=float, default=0.7)
     parser.add_argument("--mutation-probability", type=float, default=0.3)
     parser.add_argument("--max-local-system-size", type=int, default=8)
+    parser.add_argument("--model-based", action="store_true",
+                        help="LFA + roofline fitness (≤2-level hierarchies per run)")
     parser.add_argument("--tune", action="store_true",
                         help="gradient-tune the best individual's relaxation "
                              "factors after evolution")
@@ -243,9 +250,20 @@ def run(argv=None) -> Run:
 
     generator = TorchProgramGenerator(
         problem, device="cpu" if args.cpu else "cuda", ladder_rungs=args.ladder_rungs)
+    convergence_evaluator = None
+    performance_evaluator = None
+    if args.model_based:
+        from evostencils_torch.models.lfa import ConvergenceEvaluator
+        from evostencils_torch.models.roofline import PerformanceEvaluator
+
+        convergence_evaluator = ConvergenceEvaluator(
+            problem.dimension, problem.coarsening_factors, problem.finest_grid)
+        performance_evaluator = PerformanceEvaluator()
     optimizer = Optimizer.for_problem(
         problem,
         program_generator=generator,
+        convergence_evaluator=convergence_evaluator,
+        performance_evaluator=performance_evaluator,
         checkpoint_directory_path=os.path.join(output_dir, "checkpoints"),
         rng=random.Random(args.seed),
     )
@@ -274,6 +292,7 @@ def run(argv=None) -> Run:
         evaluation_samples=args.evaluation_samples,
         continue_from_checkpoint=args.continue_from_checkpoint,
         maximum_local_system_size=args.max_local_system_size,
+        model_based_estimation=args.model_based,
         pde_parameter_values=pde_parameter_values,
         seed_individuals=seed_individuals or None,
         verbose=True,
@@ -285,7 +304,8 @@ def run(argv=None) -> Run:
           f"{optimizer._individual_cache_hits}")
     _write_artifacts(output_dir, args, best, program, pops, logbooks, hofs)
     print(f"\nBest individual:\n{best}")
-    tuning = _tune(output_dir, optimizer, generator, best) if args.tune else None
+    tuning = (_tune(output_dir, optimizer, generator, best)
+              if args.tune and not args.model_based else None)
     print(f"Results written to {output_dir}/")
     return Run(optimizer, generator, best, hofs, evolution_s, tuning)
 

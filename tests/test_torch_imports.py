@@ -5,8 +5,9 @@ and the port keeps its own copies of the reference's array-free layers,
 so it must not reach into `evostencils_tpu` either, not even lazily.  A
 fresh interpreter refuses every `jax`/`jaxlib`/`evostencils_tpu` import,
 imports the port's modules, scripts/torch_optimize.py,
-scripts/torch_evaluate_helmholtz_ladder.py and chip_smoke (without running
-its main), builds a grammar and compiles a tree through the port (which
+scripts/torch_evaluate_helmholtz_ladder.py, scripts/torch_headline_1024.py,
+scripts/torch_calibrate_roofline.py, scripts/torch_optimize_intergrid.py and
+chip_smoke (without running its main), builds a grammar and compiles a tree through the port (which
 runs the lazy imports inside the IR), builds, compiles and evaluates a
 Helmholtz preconditioner (complex128, the outer BiCGStab solve), evaluates
 a 3D, a variable-coefficient, a linear elasticity and a FAS cycle, runs the
@@ -67,8 +68,18 @@ MODULES = [
     "evostencils_torch.optimization.intergrid_transfer",
     "evostencils_torch.optimization.optimizer",
     "evostencils_torch.optimization.relaxation",
+    "evostencils_torch.backend.device_solve",
+    "evostencils_torch.models",
+    "evostencils_torch.models.lfa",
+    "evostencils_torch.models.roofline",
+    "evostencils_torch.utils.timing",
+    "evostencils_torch.utils.profiling",
+    "evostencils_torch.utils.visualization",
     "scripts.torch_optimize",
     "scripts.torch_evaluate_helmholtz_ladder",
+    "scripts.torch_headline_1024",
+    "scripts.torch_calibrate_roofline",
+    "scripts.torch_optimize_intergrid",
     "chip_smoke",
 ]
 

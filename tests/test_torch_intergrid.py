@@ -4,9 +4,8 @@
   and step sizes on both sides, bit for bit (both are numpy).
 * The two-grid correction with parameterized transfers: both packages build
   the same canonical IR from the same weights.
-* `optimize_intergrid_weights` with a caller's fitness (the reference's LFA
-  default is not ported): the same stencils, best value and history on
-  both sides; the port's default raises `NotPortedError`.
+* `optimize_intergrid_weights` with a caller's fitness and with the LFA
+  default: the same stencils, best value and history on both sides.
 * The port's generator scores the two-grid correction with full weighting
   and bilinear interpolation on the CPU.
 """
@@ -19,7 +18,6 @@ from evostencils_tpu.ir.transformations import canonical_string as jax_canonical
 from evostencils_tpu.optimization import intergrid_transfer as jax_intergrid
 from evostencils_tpu.problems.poisson import poisson_2d as jax_poisson_2d
 from evostencils_tpu.stencils import gallery as jax_gallery
-from evostencils_torch import NotPortedError
 from evostencils_torch.backend.evaluation import TorchProgramGenerator
 from evostencils_torch.ir.transformations import canonical_string
 from evostencils_torch.optimization import intergrid_transfer
@@ -81,8 +79,13 @@ def test_optimize_intergrid_weights_matches_reference_with_caller_fitness():
     assert best < history[0]
     assert sorted(r.entries) == sorted(jr.entries)
     assert sorted(p.entries) == sorted(jp.entries)
-    with pytest.raises(NotPortedError):
-        intergrid_transfer.optimize_intergrid_weights(problem, generations=1)
+    # The LFA default (models/lfa.py) scores the same weights as the reference's.
+    r, p, best, history = intergrid_transfer.optimize_intergrid_weights(
+        problem, generations=1, samples_per_axis=4)
+    jr, jp, jbest, jhistory = jax_intergrid.optimize_intergrid_weights(
+        jax_problem, generations=1, samples_per_axis=4)
+    assert best == jbest and history == jhistory and 0.0 < best < 1.0
+    assert sorted(r.entries) == sorted(jr.entries)
 
 
 def test_port_scores_the_two_grid_correction():

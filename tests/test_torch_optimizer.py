@@ -152,16 +152,33 @@ def test_ea_logic_matches_reference(case, tmp_path):
 
 
 def test_model_based_fitness_is_not_ported(tmp_path):
-    problem = poisson_2d(3, 5, dtype=torch.float64)
+    """The model-based fitness and tree drawing are ported now: the LFA ρ
+    and the roofline time of a tree, and its DOT file."""
+    from evostencils_torch.models.lfa import ConvergenceEvaluator
+    from evostencils_torch.models.roofline import PerformanceEvaluator
+
+    problem = poisson_2d(5, 6, dtype=torch.float64)
     optimizer = Optimizer.for_problem(
         problem, program_generator=StubGenerator(problem, canonical_string),
+        convergence_evaluator=ConvergenceEvaluator(
+            2, problem.coarsening_factors, problem.finest_grid, samples_per_axis=4),
+        performance_evaluator=PerformanceEvaluator(),
         checkpoint_directory_path=str(tmp_path))
-    with pytest.raises(NotPortedError):
-        optimizer.estimate_single_objective(None)
-    with pytest.raises(NotPortedError):
-        optimizer.estimate_multiple_objectives(None)
-    with pytest.raises(NotPortedError):
-        Optimizer.visualize_tree(None, str(tmp_path / "tree.png"))
+    pset, terminals = generate_primitive_set(
+        problem.approximation(), problem.rhs(), problem.dimension,
+        problem.coarsening_factors, problem.max_level, problem.equations,
+        problem.operators, problem.fields, depth=1, maximum_local_system_size=4)
+    optimizer._pset = pset
+    from evostencils_torch.grammar import gp
+
+    tree = gp.parse_tree(textbook_cycle_string(terminals, 2, 2, omega_index=20), pset)
+    rho, runtime_ms = optimizer.estimate_multiple_objectives(tree)
+    assert 0.0 < rho < 0.2 and runtime_ms > 0.0
+    optimizer.clear_individual_cache()
+    single = optimizer.estimate_single_objective(gp.parse_tree(str(tree), pset))
+    assert single[0] == pytest.approx(math.log(1e-12) / math.log(rho) * runtime_ms, rel=1e-12)
+    Optimizer.visualize_tree(tree, str(tmp_path / "tree"))
+    assert (tmp_path / "tree.dot").read_text().startswith("digraph derivation {")
 
 
 def _cpu_optimizer(seed, ckpt):

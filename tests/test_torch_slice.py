@@ -42,7 +42,6 @@ from evostencils_torch.ir import base, krylov, reference_cycles
 from evostencils_torch.backend.evaluation import TorchProgramGenerator
 from evostencils_torch.backend.lowering import CycleLowering
 from evostencils_torch.backend.vm import CycleVM
-from evostencils_torch.optimization.optimizer import Optimizer
 from evostencils_torch.problems import load_problem_file
 from evostencils_torch.problems.poisson import poisson_2d
 
@@ -158,12 +157,7 @@ def test_unported_feature_raises_and_is_never_scored_infinity():
     assert not issubclass(NotPortedError, (RuntimeError, ValueError, NotImplementedError))
     side = port_side(poisson_2d(3, 5, dtype=torch.float64))
     cycle = side.expressions([])[0]
-    # The model-based (LFA and roofline) fitness is not ported: it must
-    # raise, not score ∞; so must problem files.
-    port = TorchProgramGenerator(side.problem, dtype=torch.float64, device="cpu")
-    optimizer = Optimizer.for_problem(side.problem, program_generator=port)
-    with pytest.raises(NotPortedError):
-        optimizer.estimate_single_objective(cycle)
+    # Problem files are not ported: they must raise, not score ∞.
     with pytest.raises(NotPortedError):
         load_problem_file("spec.exa2")
     # FAS evaluates now: a linear problem run as FAS (one stage, no power

@@ -46,9 +46,9 @@ JSON line:
    2 %, iterations within ±1) with one shared time per iteration; the
    kernel launched.
 6. profile: one more evaluation of the 511² champion under
-   torch.profiler: wall time, device busy time and idle share, device
-   operations, the kernel's share; the full table by kernel goes to
-   chiprun_out/profile_champion_eval.txt.
+   torch.profiler, device events only: wall time, device busy time and idle
+   share, device operations, the kernel's share; the full table by kernel
+   goes to chiprun_out/profile_champion_eval.txt.
 7. helmholtz: the published Helmholtz protocol on the card: levels 3-7
    (127² finest), complex128, outer target 1e-7.  (a) The textbook V(2,1)
    ω = 0.6 cycle as the preconditioner of BiCGStab, rung by rung at k = 80,
@@ -146,6 +146,38 @@ The staged deep solves and the models:
    time per cycle of the calibration cases at 511² against per_cycle_time
    on the card, within 2×.
 
+Problem files, the champion scripts and population dispatch:
+
+20. problem_file: artifacts/problem_specs/2D_FD_Poisson_fromL2.exa2 through
+   load_problem_file (levels 5-9 from its .knowledge file, 511², float32);
+   the exafile champion of RESULTS.md R5.5 untuned and with its stored ω,
+   3 samples each, on the parsed problem and on poisson_2d(5, 9): ρ and
+   iterations equal to the digit, the kernel's launches by grid size equal
+   and > 0 at every level where the champion smooths red-black (127²-511²;
+   at 63² it smooths with single-colour and block Jacobi), ρ < 1, no ∞; the
+   TPU's R5.5 record printed beside.
+   Then scripts/torch_optimize.py --problem-file (NSGA-II, μ = λ = 4, one
+   generation, one sample, seed 20260819; cut from R5.5's 16 × 20
+   generations), artifacts under chiprun_out/problem_file/: a hall of fame
+   holds 0 < ρ < 1.
+21. problem_file_fas: the FAS champion on the FAS template
+   (FAS_2D_Basic_template.exa4 at levels 5-9) and on fas_2d(5, 9): both
+   converge, ρ within 5 %, iterations ±1, no kernel launch.
+22. scripts: torch_evaluate_reference_solver (V(2,1), 3 samples),
+   torch_evaluate_evolved_solver (the exafile champion, 3 samples),
+   torch_champion_stats (artifacts/paper_protocol/individual_0_tuned.txt,
+   20 samples, untuned and tuned, JSON in chiprun_out/): median ρ within
+   2 % and iterations ±1 of the JAX package's CPU record
+   poisson2d_stats_n20_f32.json; torch_tune_champions (individual_0.txt,
+   10 iterations, 1 sample, into chiprun_out/tuned/): the file parses back
+   and its ω apply.  Levels 5-9, float32, each script launching the kernel.
+23. dispatch: the 16 bench trees at 511² through the optimizer's evaluation
+   path, one evaluation sample each, with SerialDispatcher and
+   ThreadPoolDispatcher(2): ρ and iterations equal per tree, launches by
+   grid size equal, evaluations per hour of both; then MultiHostDispatcher in two processes on this card (gloo over
+   127.0.0.1), 6 ω variants of V(2,1): each process's gathered list equals
+   its own serial evaluation, and both exit 0.
+
 Before the last line it prints the kernels as one JSON object and the card's
 `nvidia-smi` name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -157,6 +189,8 @@ import json
 import math
 import os
 import random
+import re
+import socket
 import subprocess
 import sys
 import time
@@ -175,13 +209,16 @@ from evostencils_torch.measure import LEVELS, bound_ms, median_device_ms
 from evostencils_torch.ops import _build, rb_sweep
 from evostencils_torch.optimization.optimizer import Optimizer
 from evostencils_torch.backend.lowering import CycleLowering
-from evostencils_torch.problems import elasticity, fas, poisson
+from evostencils_torch.parallel.dispatch import SerialDispatcher, ThreadPoolDispatcher
+from evostencils_torch.problems import elasticity, fas, load_problem_file, poisson
 from evostencils_torch.problems.helmholtz import helmholtz_2d
 from evostencils_torch.problems.poisson import poisson_2d
 from evostencils_torch.stencils import constant
 from evostencils_torch.utils.champions import apply_stored_omegas, parse_champion_file
 from scripts import (
-    torch_calibrate_roofline, torch_evaluate_helmholtz_ladder, torch_headline_1024, torch_optimize,
+    torch_calibrate_roofline, torch_champion_stats, torch_evaluate_evolved_solver,
+    torch_evaluate_helmholtz_ladder, torch_evaluate_reference_solver, torch_headline_1024,
+    torch_optimize, torch_tune_champions,
 )
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -587,7 +624,7 @@ def profile_run(evaluate, table_name: str, host_ops: bool = True) -> dict:
 def phase_profile(generator, champion) -> None:
     """One evaluation of the champion under torch.profiler (profile_run)."""
     run = profile_run(lambda: generator.generate_and_evaluate(champion, evaluation_samples=3),
-                      "profile_champion_eval.txt")
+                      "profile_champion_eval.txt", host_ops=False)
     sweep = [e for e in run.pop("events") if "rb_sweep_kernel" in e.name]
     emit({
         "phase": "profile", **run,
@@ -1367,6 +1404,367 @@ def phase_models(failures: list, champion_rho: float) -> None:
     emit(record)
 
 
+# ---- problem files, the champion scripts and population dispatch ----
+
+SPECS = os.path.join(ARTIFACTS, "problem_specs")
+POISSON_SPEC = os.path.join(SPECS, "2D_FD_Poisson_fromL2.exa2")
+FAS_SPEC = os.path.join(SPECS, "FAS_2D_Basic_template.exa4")
+EXAFILE_CHAMPIONS = {
+    "untuned": os.path.join(ARTIFACTS, "exafile_poisson_champion_r5.txt"),
+    "tuned": os.path.join(ARTIFACTS, "exafile_poisson_champion_r5_tuned.txt"),
+}
+# RESULTS.md R5.5: the TPU's evolution driven by the reference's .exa2 file,
+# 3 samples at 511².  A cross-check printed beside the card's numbers.
+R55_TPU_RECORD = {"untuned": {"rho": 0.1703, "iterations": 16},
+                  "tuned": {"rho": 0.0802, "iterations": 11}}
+PROBLEM_FILE_ARGS = [
+    "--problem-file", POISSON_SPEC, "--method", "nsga2", "--mu", "4", "--lambda", "4",
+    "--generations", "1", "--evaluation-samples", "1", "--seed", "20260819",
+    "--output", os.path.join(ROOT, "chiprun_out", "problem_file"),
+]
+PAPER_CHAMPION_0 = os.path.join(ARTIFACTS, "paper_protocol", "individual_0.txt")
+PAPER_STATS_RECORD = os.path.join(ARTIFACTS, "paper_protocol", "poisson2d_stats_n20_f32.json")
+DISPATCH_OMEGAS = (0.7, 0.8, 0.9, 1.0, 1.1, 1.2)
+
+
+def red_black_shapes(path: str, finest_level: int) -> list:
+    """The grid shapes at which a stored tree smooths with red-black point
+    Jacobi, the kernel's work: `collective_jacobi_<i>(rf_n,red_black,...)`
+    at level index i below the finest."""
+    tree_string = parse_champion_file(path)[0]
+    indices = {int(i) for i in re.findall(
+        r"collective_jacobi_(\d+)(?:__\d+)?\(rf_\d+,red_black", tree_string)}
+    return sorted((2 ** (finest_level - i) - 1,) * 2 for i in indices)
+
+
+def add_launches(total: dict, launched: dict) -> None:
+    for shape, count in launched.items():
+        total[shape] = total.get(shape, 0) + count
+
+
+def launches_record(by_shape: dict) -> dict:
+    return {f"{r}x{c}": n for (r, c), n in sorted(by_shape.items())}
+
+
+def phase_problem_file(failures: list) -> dict:
+    """The exafile champion on the problem parsed from the .exa2 spec and on
+    poisson_2d(5, 9), then an NSGA-II run from the spec; returns the
+    kernel's launches by grid shape over the phase."""
+    start = time.perf_counter()
+    phase_launches = {}
+    parsed = load_problem_file(POISSON_SPEC)
+    problems = {"parsed": parsed, "poisson_2d": poisson_2d(5, 9, dtype=torch.float32)}
+    record = {"phase": "problem_file", "spec": os.path.relpath(POISSON_SPEC, ROOT),
+              "levels": [parsed.min_level, parsed.max_level], "dtype": str(parsed.dtype)}
+    if (parsed.min_level, parsed.max_level, parsed.dtype) != (5, 9, torch.float32):
+        failures.append(f"problem_file: the spec loaded as {record}")
+    for label, path in EXAFILE_CHAMPIONS.items():
+        # 127²-511² for the exafile champion: at 63² it smooths with
+        # single-colour and block Jacobi only.
+        expected = red_black_shapes(path, parsed.max_level)
+        entry = {"red_black_levels": [f"{r}x{c}" for r, c in expected]}
+        for name, problem in problems.items():
+            expr = artifact_expression(problem, path, label == "tuned", failures)
+            generator = TorchProgramGenerator(problem, device=DEVICE)
+            rb_sweep.launches.clear()
+            entry[name] = timed_evaluation(generator, expr)
+            launched = dict(rb_sweep.launches)
+            add_launches(phase_launches, launched)
+            entry[name]["rb_sweep_launches_by_shape"] = launches_record(launched)
+            check_contracts(failures, f"problem_file {label} {name}", entry[name])
+            check_results(failures, f"problem_file {label} {name}", [
+                (entry[name]["time_to_target_ms"] or math.inf, entry[name]["rho"],
+                 entry[name]["iterations"])])
+            for shape in expected:
+                if not launched.get(shape):
+                    failures.append(f"problem_file {label} {name}: no kernel launch at "
+                                    f"{shape[0]}x{shape[1]}")
+        a, b = entry["parsed"], entry["poisson_2d"]
+        if not expected:
+            failures.append(f"problem_file {label}: the champion has no red-black smoother")
+        if (a["rho"], a["iterations"]) != (b["rho"], b["iterations"]):
+            failures.append(f"problem_file {label}: parsed rho {a['rho']} in {a['iterations']} "
+                            f"vs poisson_2d {b['rho']} in {b['iterations']}")
+        if a["rb_sweep_launches_by_shape"] != b["rb_sweep_launches_by_shape"]:
+            failures.append(f"problem_file {label}: launches {a['rb_sweep_launches_by_shape']} "
+                            f"vs poisson_2d {b['rb_sweep_launches_by_shape']}")
+        entry["tpu_r5_5_record"] = R55_TPU_RECORD[label]
+        record[label] = entry
+
+    rb_sweep.launches.clear()
+    t0 = time.perf_counter()
+    result = torch_optimize.run(PROBLEM_FILE_ARGS)
+    torch.cuda.synchronize()
+    launched = dict(rb_sweep.launches)
+    add_launches(phase_launches, launched)
+    halls = [[list(ind.fitness_values) for ind in hof] for hof in result.halls_of_fame]
+    record["evolve"] = {
+        "args": " ".join(PROBLEM_FILE_ARGS[2:-2]),
+        "problem": result.generator.problem.name,
+        "evaluations": result.optimizer._total_number_of_evaluations,
+        "evolution_s": result.evolution_s, "s": time.perf_counter() - t0,
+        "best_rho": min((rho for hof in halls for rho, _ in hof), default=None),
+        "rb_sweep_launches_by_shape": launches_record(launched),
+    }
+    if not any(0.0 < rho < 1.0 for hof in halls for rho, _ in hof):
+        failures.append(f"problem_file: no hall of fame holds 0 < ρ < 1: {halls}")
+    if not launched:
+        failures.append("problem_file: the evolution from the spec never launched the kernel")
+    record["rb_sweep_launches"] = sum(phase_launches.values())
+    record["phase_s"] = time.perf_counter() - start
+    emit(record)
+    return phase_launches
+
+
+def phase_problem_file_fas(failures: list) -> int:
+    """The FAS champion on the parsed FAS template and on fas_2d at levels
+    5-9: both converge, ρ within 5 % and iterations within ±1 (the parsed
+    Jacobian 20·u·eᵘ + 20·eᵘ rounds otherwise than γ(1+u)eᵘ, and FAS ρ comes
+    from the stall rule), and the gate refuses the nonlinear operator."""
+    start = time.perf_counter()
+    rb_sweep.launches.clear()
+    parsed = load_problem_file(FAS_SPEC).with_levels(5, 9)
+    results = {
+        "parsed": grammar_entry_evaluation(parsed, DEVICE, FAS_CHAMPION),
+        "fas_2d": grammar_entry_evaluation(fas.fas_2d(5, 9, dtype=torch.float32), DEVICE,
+                                           FAS_CHAMPION),
+    }
+    launched = check_no_launch(failures, "problem_file_fas")
+    emit({"phase": "problem_file_fas", "spec": os.path.relpath(FAS_SPEC, ROOT),
+          "levels": [5, 9], "dtype": str(parsed.dtype), **results,
+          "rb_sweep_launches": launched, "phase_s": time.perf_counter() - start})
+    for name, result in results.items():
+        check_contracts(failures, f"problem_file_fas {name}", result)
+        if result["time_to_target_ms"] is None:
+            failures.append(f"problem_file_fas {name}: did not converge")
+    a, b = results["parsed"], results["fas_2d"]
+    if not abs(a["rho"] - b["rho"]) <= 0.05 * b["rho"]:
+        failures.append(f"problem_file_fas: rho {a['rho']} vs fas_2d {b['rho']} beyond 5 %")
+    if not abs(a["iterations"] - b["iterations"]) <= 1:
+        failures.append(f"problem_file_fas: {a['iterations']} vs {b['iterations']} iterations")
+    return launched
+
+
+def phase_scripts(failures: list) -> dict:
+    """The four champion scripts in this process at levels 5-9 (511²),
+    float32; returns the kernel's launches by grid shape over them."""
+    start = time.perf_counter()
+    phase_launches = {}
+    record = {"phase": "scripts"}
+    out = os.path.join(ROOT, "chiprun_out")
+    runs = {
+        "evaluate_reference_solver": (torch_evaluate_reference_solver, [
+            "--pre", "2", "--post", "1", "--samples", "3"]),
+        "evaluate_evolved_solver": (torch_evaluate_evolved_solver, [
+            EXAFILE_CHAMPIONS["untuned"], "--evaluation-samples", "3"]),
+        "champion_stats": (torch_champion_stats, [
+            os.path.join(ARTIFACTS, "paper_protocol", "individual_0_tuned.txt"),
+            "--samples", "20", "--json", os.path.join(out, "poisson2d_stats_n20_cuda.json")]),
+        "tune_champions": (torch_tune_champions, [
+            PAPER_CHAMPION_0, "--iterations", "10", "--samples", "1",
+            "--output-dir", os.path.join(out, "tuned")]),
+    }
+    results = {}
+    for name, (module, argv) in runs.items():
+        rb_sweep.launches.clear()
+        t0 = time.perf_counter()
+        results[name] = module.run(argv)
+        torch.cuda.synchronize()
+        launched = dict(rb_sweep.launches)
+        add_launches(phase_launches, launched)
+        record[name] = {"args": " ".join(os.path.relpath(a, ROOT) if os.path.isabs(a) else a
+                                         for a in argv),
+                        "s": time.perf_counter() - t0,
+                        "rb_sweep_launches_by_shape": launches_record(launched)}
+        if not launched:
+            failures.append(f"scripts: {name} never launched the kernel")
+
+    for name in ("evaluate_reference_solver", "evaluate_evolved_solver"):
+        result = results[name]
+        record[name].update(result)
+        if not 0.0 < result["convergence_factor"] < 1.0 or not result["time_to_convergence_ms"] < 1e50:
+            failures.append(f"scripts: {name} gave {result}")
+
+    with open(PAPER_STATS_RECORD) as f:
+        stored = json.load(f)["champions"][0]
+    (entry,) = results["champion_stats"]["champions"]
+    record["champion_stats"]["card"] = {
+        label: {key: entry[label][key]["median"] for key in ("rho", "iterations",
+                                                            "time_to_target_ms")}
+        for label in ("untuned", "tuned")}
+    record["champion_stats"]["cpu_record_of_the_jax_package"] = {
+        label: {key: stored[label][key]["median"] for key in ("rho", "iterations")}
+        for label in ("untuned", "tuned")}
+    for label in ("untuned", "tuned"):
+        card, cpu = entry[label], stored[label]
+        if not abs(card["rho"]["median"] - cpu["rho"]["median"]) <= 0.02 * cpu["rho"]["median"]:
+            failures.append(f"scripts: champion_stats {label} median rho "
+                            f"{card['rho']['median']} vs record {cpu['rho']['median']}")
+        if not abs(card["iterations"]["median"] - cpu["iterations"]["median"]) <= 1:
+            failures.append(f"scripts: champion_stats {label} median iterations "
+                            f"{card['iterations']['median']} vs {cpu['iterations']['median']}")
+
+    (tuned,) = results["tune_champions"]
+    record["tune_champions"].update(
+        {key: tuned[key] for key in ("rho_before", "rho_after", "iterations_before",
+                                     "iterations_after")})
+    tree_string, omegas = parse_champion_file(tuned["output"])
+    bench = poisson_2d(5, 9, dtype=torch.float32)
+    pset = family_pset(bench)
+    expr = gp.compile_tree(gp.parse_tree(tree_string, pset), pset)[0]
+    if not (omegas and apply_stored_omegas(expr, omegas, label=tuned["output"])):
+        failures.append(f"scripts: the tuned file {tuned['output']} does not apply its omegas")
+    record["rb_sweep_launches"] = sum(phase_launches.values())
+    record["phase_s"] = time.perf_counter() - start
+    emit(record)
+    return phase_launches
+
+
+_MULTIHOST_WORKER = """
+import json, sys
+import torch
+import torch.distributed as dist
+
+rank, address, device = int(sys.argv[1]), sys.argv[2], sys.argv[4]
+omegas = [float(w) for w in sys.argv[3].split(",")]
+dist.init_process_group("gloo", init_method=f"tcp://{address}", rank=rank, world_size=2)
+from evostencils_torch.backend.evaluation import TorchProgramGenerator
+from evostencils_torch.grammar.multigrid import generate_primitive_set
+from evostencils_torch.ir.reference_cycles import generate_v_cycle
+from evostencils_torch.ops import rb_sweep
+from evostencils_torch.parallel.dispatch import MultiHostDispatcher, SerialDispatcher
+from evostencils_torch.problems.poisson import poisson_2d
+
+problem = poisson_2d(5, 9, dtype=torch.float32)
+_, terminals = generate_primitive_set(
+    problem.approximation(), problem.rhs(), 2, problem.coarsening_factors, 9,
+    problem.equations, problem.operators, problem.fields, depth=4)
+cycles = [generate_v_cycle(terminals, problem.rhs(), 2, 1, omega=w) for w in omegas]
+dispatcher = MultiHostDispatcher(inner=SerialDispatcher())
+generator = TorchProgramGenerator(problem, device=device)
+gathered = dispatcher.map(lambda c: generator.generate_and_evaluate(c, evaluation_samples=1),
+                          cycles)
+if device == "cuda":
+    torch.cuda.synchronize()
+launches = rb_sweep.launches.total()
+local = TorchProgramGenerator(problem, device=device)
+serial = [local.generate_and_evaluate(c, evaluation_samples=1) for c in cycles]
+same = [(g[1], g[2]) == (s[1], s[2]) for g, s in zip(gathered, serial)]
+print(json.dumps({"rank": rank, "gathered": [list(g) for g in gathered],
+                  "serial": [list(s) for s in serial], "same": same,
+                  "launches_in_dispatch": launches}), flush=True)
+dist.destroy_process_group()
+sys.exit(0 if all(same) else 1)
+"""
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_dispatch(failures: list) -> dict:
+    """The 16 bench trees at 511² through the optimizer's evaluation path
+    with SerialDispatcher and ThreadPoolDispatcher(2); then
+    MultiHostDispatcher in two processes on this card.  Returns the
+    kernel's launches by grid shape in this process."""
+    start = time.perf_counter()
+    phase_launches = {}
+    problem = poisson_2d(min_level=5, max_level=9, dtype=torch.float32)
+    pset = bench_pset(problem)
+    rng = random.Random(20260816)
+    trees = [gp.gen_grow(pset, 2, 16, rng=rng) for _ in range(16)]
+    warm = gp.gen_grow(pset, 2, 10, rng=rng)
+    record = {"phase": "dispatch", "n_individuals": len(trees)}
+    runs = {}
+    for name, dispatcher in (("serial", SerialDispatcher()),
+                             ("threads_2", ThreadPoolDispatcher(max_workers=2))):
+        generator = TorchProgramGenerator(problem, iteration_limit=500, device=DEVICE)
+        generator.generate_and_evaluate(gp.compile_tree(warm, pset)[0], evaluation_samples=1)
+        optimizer = Optimizer.for_problem(problem, program_generator=generator,
+                                          rng=random.Random(0), dispatcher=dispatcher)
+        optimizer._pset = pset
+        optimizer._n_objectives = 2
+        optimizer._measured_evaluation = True
+        # The fitness keeps ρ and time per iteration; record the counts too.
+        measured = {}
+        evaluate_inner = generator.generate_and_evaluate
+
+        def recording(expression, _inner=evaluate_inner, _measured=measured, **kwargs):
+            result = _inner(expression, **kwargs)
+            _measured[canonical_string(expression)] = result
+            return result
+
+        generator.generate_and_evaluate = recording
+        individuals = [gp.parse_tree(str(tree), pset) for tree in trees]
+        torch.cuda.synchronize()
+        rb_sweep.launches.clear()
+        t0 = time.perf_counter()
+        optimizer._evaluate_population(
+            individuals,
+            lambda ind, _o=optimizer: _o.evaluate_multiple_objectives(ind, evaluation_samples=1),
+            evaluation_samples=1)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launched = dict(rb_sweep.launches)
+        add_launches(phase_launches, launched)
+        per_tree = []
+        for individual in individuals:
+            key = canonical_string(optimizer.compile_individual(individual)[0])
+            t, rho, iterations = measured.get(key, (math.nan,) * 3)
+            per_tree.append((rho, iterations))
+        runs[name] = {"per_tree": per_tree, "launches": launched}
+        record[name] = {"elapsed_s": elapsed, "evals_per_hour": len(trees) / elapsed * 3600.0,
+                        "evaluated": len(measured), "vm_stats": generator.vm_stats(),
+                        "rb_sweep_launches_by_shape": launches_record(launched)}
+    if runs["serial"]["per_tree"] != runs["threads_2"]["per_tree"]:
+        failures.append(f"dispatch: threads {runs['threads_2']['per_tree']} vs serial "
+                        f"{runs['serial']['per_tree']}")
+    if runs["serial"]["launches"] != runs["threads_2"]["launches"]:
+        failures.append(f"dispatch: launches {runs['threads_2']['launches']} vs serial "
+                        f"{runs['serial']['launches']}")
+    if not runs["serial"]["launches"]:
+        failures.append("dispatch: the kernel never launched")
+    record["per_tree"] = runs["serial"]["per_tree"]
+    record["thread_pool_speedup"] = (record["serial"]["elapsed_s"]
+                                     / record["threads_2"]["elapsed_s"])
+
+    address = f"127.0.0.1:{_free_port()}"
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _MULTIHOST_WORKER, str(rank), address,
+         ",".join(str(w) for w in DISPATCH_OMEGAS), DEVICE],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+        for rank in range(2)]
+    outputs = []
+    try:
+        for p in procs:
+            outputs.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    workers = []
+    for rank, (p, (out, err)) in enumerate(zip(procs, outputs)):
+        lines = [line for line in out.splitlines() if line.startswith("{")]
+        workers.append(json.loads(lines[-1]) if lines else {"rank": rank})
+        if p.returncode != 0 or not lines:
+            failures.append(f"dispatch: multihost process {rank} exited {p.returncode}: "
+                            f"{(out + err)[-1500:]}")
+    gathered = [w.get("gathered") for w in workers]
+    if gathered[0] != gathered[1]:
+        failures.append("dispatch: the two processes gathered different lists")
+    record["multihost"] = {"processes": 2, "omegas": list(DISPATCH_OMEGAS),
+                           "s": time.perf_counter() - t0, "workers": workers}
+    record["rb_sweep_launches"] = sum(phase_launches.values())
+    record["phase_s"] = time.perf_counter() - start
+    emit(record)
+    return phase_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing was run",
@@ -1394,6 +1792,10 @@ def main() -> int:
     phase_profile_families(failures)
     headline_launches = phase_headline(failures)
     phase_models(failures, champion_rho)
+    problem_file_launches = phase_problem_file(failures)
+    family_launches["problem_file_fas"] = phase_problem_file_fas(failures)
+    scripts_launches = phase_scripts(failures)
+    dispatch_launches = phase_dispatch(failures)
     if failures:
         for failure in failures:
             print(f"chip_smoke FAILED: {failure}", file=sys.stderr)
@@ -1412,6 +1814,10 @@ def main() -> int:
             **{f"{phase}_launches": count for phase, count in family_launches.items()},
             "headline_launches": sum(n for shape, n in headline_launches.items()
                                      if role(shape) == name),
+            **{f"{phase}_launches": sum(n for shape, n in by_shape.items() if role(shape) == name)
+               for phase, by_shape in (("problem_file", problem_file_launches),
+                                       ("scripts", scripts_launches),
+                                       ("dispatch", dispatch_launches))},
             "max_abs_err": max(e for s in CHECKED if role(s) == name
                                for e in kernel[s]["max_abs_err"].values()),
             "ms": kernel[timed]["ms"], "plain_ms": kernel[timed]["plain_ms"],

@@ -20,7 +20,8 @@ and owns every layer that touches arrays:
                 registry: 1D/2D/3D Poisson, variable-coefficient Poisson
                 (2D, 3D), linear elasticity (two fields), 2D Helmholtz with
                 its complex shifted-Laplacian preconditioner (Dirichlet or
-                Robin) and the nonlinear FAS problem
+                Robin) and the nonlinear FAS problem; parser.py loads
+                ExaSlang-style .exa2/.exa3/.exa4 specs (load_problem_file)
     ops/        stencils (constant and variable), transfers, coarse solve,
                 smoothers, the Krylov
                 solvers (CG, CR, MinRes, BiCGStab, preconditioned
@@ -32,11 +33,14 @@ and owns every layer that touches arrays:
                 solve and the k-ladder of Helmholtz)
     optimization/optimizer.py, relaxation.py: the evolutionary optimizer
                 and the ω tuners (torch.autograd, CMA-ES)
+    parallel/   population dispatch: a thread pool, or a torch.distributed
+                process group splitting each generation's evaluations
     interop.py  carries the reference's arrays, coefficient planes, VM
                 programs and solve specs across to torch
 
-The entry scripts are scripts/torch_optimize.py and
-scripts/torch_evaluate_helmholtz_ladder.py.  Every entry point runs on
+The entry scripts are scripts/torch_*.py (torch_optimize.py evolves;
+the others evaluate, tune, time and calibrate) and docs/torch_tutorial.py.
+Every entry point runs on
 the card (`device="cuda"`) unless the caller asks for the CPU, and takes
 torch.float32, float64, complex64 or complex128 (the complex dtypes for
 Helmholtz; the CUDA kernel is float32 only, as the reference's).  TF32 is switched off at import: the

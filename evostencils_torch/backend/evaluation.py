@@ -38,6 +38,7 @@ are CUDA-event spans on a GPU and `perf_counter` spans on the CPU.
 from __future__ import annotations
 
 import math
+import threading
 import time
 from typing import Optional
 
@@ -118,6 +119,10 @@ class TorchProgramGenerator:
         self.lowering = CycleLowering(self.dtype, self.device)
         self._solver_cache = {}
         self._vms = {}
+        # Solver construction (VM opcodes, solver caches, hit counts) is
+        # shared state: concurrent evaluations (parallel/dispatch.py) build
+        # one at a time and run their solves unlocked.
+        self._build_lock = threading.RLock()
         self.run_time_total = 0.0
         # Seeded right-hand side / initial guess for sample-spread
         # re-measurement (Problem.initial_state).
@@ -271,24 +276,25 @@ class TorchProgramGenerator:
         around the cycle VM's step when the expression translates, else
         around the IR-lowered step.  `omega_arg` is the VM Program or the
         relaxation factors as float32 (the reference's traced ω vector)."""
-        vm, program = self._vm_program(expression)
-        if program is not None:
-            self.vm_hits += 1
-            key = ("__vm__", self._param_sig, self._expression_level(expression))
+        with self._build_lock:
+            vm, program = self._vm_program(expression)
+            if program is not None:
+                self.vm_hits += 1
+                key = ("__vm__", self._param_sig, self._expression_level(expression))
+                if key not in self._solver_cache:
+                    operator = self._finest_operator_for(expression)
+                    self._solver_cache[key] = self._stage_power_fns(vm.make_step(), operator) + (
+                        operator,
+                    )
+                return self._solver_cache[key], program
+            self.vm_misses += 1
+            omega_values = self._omega_vector(expression)
+            key = self._structural_key(expression)
             if key not in self._solver_cache:
+                step = self.lowering.lower_parameterized(expression)[0]
                 operator = self._finest_operator_for(expression)
-                self._solver_cache[key] = self._stage_power_fns(vm.make_step(), operator) + (
-                    operator,
-                )
-            return self._solver_cache[key], program
-        self.vm_misses += 1
-        omega_values = self._omega_vector(expression)
-        key = self._structural_key(expression)
-        if key not in self._solver_cache:
-            step = self.lowering.lower_parameterized(expression)[0]
-            operator = self._finest_operator_for(expression)
-            self._solver_cache[key] = self._stage_power_fns(step, operator) + (operator,)
-        return self._solver_cache[key], omega_values
+                self._solver_cache[key] = self._stage_power_fns(step, operator) + (operator,)
+            return self._solver_cache[key], omega_values
 
     def _structural_key(self, expression, prefix: str = "solve"):
         return (prefix, self._param_sig,
@@ -630,33 +636,34 @@ class TorchProgramGenerator:
         VM when the cycle translates, else lowered from the IR.
         `probe_iterations` gives the short-capped variant of the
         prescreen, which counts as neither VM hit nor miss."""
-        tag = "outer" if probe_iterations is None else f"outer_probe_{probe_iterations}"
-        max_iterations = (
-            self.problem.outer_solver["max_iterations"]
-            if probe_iterations is None else probe_iterations
-        )
-        vm, program = self._vm_program(expression)
-        if program is not None:
-            if probe_iterations is None:
-                self.vm_hits += 1
-            key = ("__vm__", self._param_sig, self._expression_level(expression), tag)
-            omega_arg, make_step = program, vm.make_step
-        else:
-            if probe_iterations is None:
-                self.vm_misses += 1
-            key = self._structural_key(expression, tag)
-            omega_arg = self._omega_vector(expression)
-
-            def make_step():
-                return self.lowering.lower_parameterized(expression)[0]
-
-        if key not in self._solver_cache:
-            outer_operator = self._outer_operator_for(expression)
-            self._solver_cache[key] = (
-                self._outer_solve_raw(make_step(), outer_operator, max_iterations),
-                outer_operator,
+        with self._build_lock:
+            tag = "outer" if probe_iterations is None else f"outer_probe_{probe_iterations}"
+            max_iterations = (
+                self.problem.outer_solver["max_iterations"]
+                if probe_iterations is None else probe_iterations
             )
-        return self._solver_cache[key], omega_arg
+            vm, program = self._vm_program(expression)
+            if program is not None:
+                if probe_iterations is None:
+                    self.vm_hits += 1
+                key = ("__vm__", self._param_sig, self._expression_level(expression), tag)
+                omega_arg, make_step = program, vm.make_step
+            else:
+                if probe_iterations is None:
+                    self.vm_misses += 1
+                key = self._structural_key(expression, tag)
+                omega_arg = self._omega_vector(expression)
+
+                def make_step():
+                    return self.lowering.lower_parameterized(expression)[0]
+
+            if key not in self._solver_cache:
+                outer_operator = self._outer_operator_for(expression)
+                self._solver_cache[key] = (
+                    self._outer_solve_raw(make_step(), outer_operator, max_iterations),
+                    outer_operator,
+                )
+            return self._solver_cache[key], omega_arg
 
     def _generate_and_evaluate_outer(self, expression, infinity, evaluation_samples):
         """Outer-Krylov evaluation with restarts from the exact residual.

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -28,6 +29,9 @@ NVCC_FLAGS = (
 )
 
 _library = None
+# Serialises the build and the load: two threads that launch the kernel
+# first must not both run nvcc into the same target.
+_library_lock = threading.Lock()
 # Seconds the nvcc run took in this process (None: loaded a built library)
 # and what nvcc printed, including ptxas' register and shared-memory use.
 build_seconds = None
@@ -73,19 +77,20 @@ def _compile(target: Path) -> None:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     global _library
-    if _library is None:
-        target = library_path()
-        if not target.exists():
-            _compile(target)
-        lib = ctypes.CDLL(str(target))
-        # Every pointer and the stream as c_void_p: ctypes would pass a bare
-        # Python int as a 32-bit int and cut the pointer.
-        # The stencil's coefficients and presence bits are host arrays.
-        lib.rb_sweep_f32.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint32),
-            ctypes.c_int, ctypes.c_float,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.rb_sweep_f32.restype = ctypes.c_int
-        _library = lib
-    return _library
+    with _library_lock:
+        if _library is None:
+            target = library_path()
+            if not target.exists():
+                _compile(target)
+            lib = ctypes.CDLL(str(target))
+            # Every pointer and the stream as c_void_p: ctypes would pass a
+            # bare Python int as a 32-bit int and cut the pointer.
+            # The stencil's coefficients and presence bits are host arrays.
+            lib.rb_sweep_f32.argtypes = [ctypes.c_void_p] * 4 + [
+                ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint32),
+                ctypes.c_int, ctypes.c_float,
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ]
+            lib.rb_sweep_f32.restype = ctypes.c_int
+            _library = lib
+        return _library

@@ -13,6 +13,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -38,6 +39,14 @@ _SIDE = 2 * MAX_RADIUS + 1
 # counted where the kernel launches, nowhere else (not where a CUDA graph
 # capture records it, nor in the graph's replays).
 launches = collections.Counter()
+# Counter's += reads and then writes: threads that launch at once would
+# lose counts without it.
+_launches_lock = threading.Lock()
+
+
+def count_launch(shape) -> None:
+    with _launches_lock:
+        launches[tuple(shape)] += 1
 
 
 def _stencil_radius(entries) -> int:
@@ -143,5 +152,5 @@ def red_black_collective_jacobi_sweep(u, f, omega, stencil: constant.Stencil) ->
         raise CudaKernelError(f"rb_sweep_f32 did not launch: CUDA error {err}")
     if not torch.cuda.is_current_stream_capturing():
         # A CUDA graph capture records the launch; its replays launch it.
-        launches[tuple(u.shape)] += 1
+        count_launch(u.shape)
     return out

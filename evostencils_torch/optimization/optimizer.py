@@ -120,6 +120,7 @@ class Optimizer:
         infinity=1e100,
         individual_cache_size=100000,
         rng: Optional[random.Random] = None,
+        dispatcher=None,
     ):
         self._dimension = dimension
         self._finest_grid = finest_grid
@@ -154,6 +155,11 @@ class Optimizer:
         self._total_number_of_evaluations = 0
         self._total_evaluation_time = 0.0
         self._pset = None
+        # parallel/dispatch.py: ThreadPoolDispatcher (threads of this
+        # process) or MultiHostDispatcher (a torch.distributed group splits
+        # the population, the reference's MPI ranks); None evaluates one
+        # individual after another.
+        self._dispatcher = dispatcher
 
     @classmethod
     def for_problem(cls, problem, program_generator=None, **kwargs):
@@ -446,8 +452,9 @@ class Optimizer:
 
         Same-structure individuals (offspring that differ only in their
         relaxation factors ω) evaluate as one group through
-        program_generator.generate_and_evaluate_group; the rest run
-        serially (reference program.py:478-502)."""
+        program_generator.generate_and_evaluate_group; the rest run through
+        the dispatcher, or one after another without one (reference
+        program.py:478-502)."""
         from evostencils_torch.ir.transformations import canonical_string
 
         invalid = [ind for ind in individuals if ind.fitness_values is None]
@@ -457,6 +464,11 @@ class Optimizer:
         can_group = (
             getattr(self, "_measured_evaluation", False)
             and hasattr(self._program_generator, "generate_and_evaluate_group")
+            # A group's shared time is measured where it runs: each process
+            # of a MultiHostDispatcher would score it with its own time and
+            # breed other populations, so there groups go through the
+            # dispatcher one by one.
+            and getattr(self._dispatcher, "process_count", 1) == 1
         )
         for ind in invalid:
             if len(ind) > 150 or self.individual_in_cache(ind):
@@ -489,9 +501,15 @@ class Optimizer:
                 self.add_individual_to_cache(ind, fitness)
                 ind.fitness_values = tuple(fitness)
 
-        for ind in singles:
-            fit = evaluate(ind)
+        if self._dispatcher is not None:
+            results = self._dispatcher.map(evaluate, singles)
+        else:
+            results = [evaluate(ind) for ind in singles]
+        for ind, fit in zip(singles, results):
             ind.fitness_values = tuple(fit)
+            # Under a MultiHostDispatcher the fitnesses of individuals other
+            # processes evaluated arrive gathered: merging them into the
+            # cache keeps every process's cache the same.
             self.add_individual_to_cache(ind, tuple(fit))
         return len(invalid)
 

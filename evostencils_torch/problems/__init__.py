@@ -1,7 +1,7 @@
 from evostencils_torch.problems.api import Problem  # noqa: F401
-from evostencils_torch.problems import elasticity, fas, helmholtz, poisson  # noqa: F401
+import os
 
-from evostencils_torch import NotPortedError
+from evostencils_torch.problems import elasticity, fas, helmholtz, parser, poisson  # noqa: F401
 
 
 def build_named_problem(name: str, min_level: int = 5, max_level: int = 9):
@@ -24,6 +24,24 @@ def build_named_problem(name: str, min_level: int = 5, max_level: int = 9):
 
 
 def load_problem_file(path: str, knowledge_path: str = None, dtype=None):
-    """The reference loads .exa2/.exa3/.exa4 specs through
-    problems/parser.py, which is not ported."""
-    raise NotPortedError("problem files (problems/parser.py)")
+    """Load a problem spec by file extension: .exa2 (layer 2), .exa3
+    (layer-3 configs with a hand-written outer solver), .exa4 (layer-4 FAS
+    templates).  Without `knowledge_path`, the `.knowledge` file beside
+    the spec is used when there is one (for a `*_template` spec, also the
+    name without `_template`)."""
+    if knowledge_path is None:
+        for candidate in (
+            path.rsplit(".", 1)[0] + ".knowledge",
+            path.replace("_template", "").rsplit(".", 1)[0] + ".knowledge",
+        ):
+            if os.path.isfile(candidate):
+                knowledge_path = candidate
+                break
+    ext = path.rsplit(".", 1)[-1]
+    if ext == "exa2":
+        return parser.parse_exa2(path, knowledge_path, dtype=dtype)
+    if ext == "exa3":
+        return parser.parse_exa3(path, knowledge_path, dtype=dtype)
+    if ext == "exa4":
+        return parser.parse_exa4(path, knowledge_path, dtype=dtype)
+    raise ValueError(f"Unknown problem file extension: {path}")

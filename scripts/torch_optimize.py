@@ -35,9 +35,23 @@ time per cycle (evostencils_torch/models/, H100 constants) instead of
 running them, on hierarchies of at most two levels per run, as the
 reference does; --tune is then skipped.
 
-Without CUDA it stops unless --cpu is given.  Not ported yet (flags of
-scripts/optimize.py left out): --problem-file, --knowledge, --mesh and
---multihost.
+--problem-file loads an .exa2/.exa3/.exa4 spec (evostencils_torch/problems/
+parser.py; examples under artifacts/problem_specs/) in place of a named
+problem, with its levels from the .knowledge file beside it (or
+--knowledge), which --min-level/--max-level override:
+  python3 scripts/torch_optimize.py --problem-file \
+      artifacts/problem_specs/2D_FD_Poisson_fromL2.exa2 --method nsga2 \
+      --mu 16 --lambda 16 --generations 20 --evaluation-samples 3 --tune
+
+--multihost splits each generation's evaluations across the processes that
+torchrun starts (a gloo process group from torchrun's environment; every
+process breeds the same populations from --seed and the gathered
+fitnesses, and rank 0 writes the artifacts):
+  torchrun --nproc_per_node 2 scripts/torch_optimize.py --multihost \
+      --seed 3 --mu 8 --lambda 8 --generations 2
+
+Without CUDA it stops unless --cpu is given.  Not ported: --mesh (the
+reference's spatial sharding over a device mesh).
 """
 
 import argparse
@@ -56,7 +70,7 @@ from evostencils_torch.backend.evaluation import TorchProgramGenerator
 from evostencils_torch.backend.lowering import CycleLowering
 from evostencils_torch.grammar import gp
 from evostencils_torch.optimization.optimizer import Optimizer
-from evostencils_torch.problems import build_named_problem
+from evostencils_torch.problems import build_named_problem, load_problem_file
 from evostencils_torch.problems.helmholtz import helmholtz_2d, helmholtz_ladder, max_level_for_k
 
 
@@ -101,6 +115,16 @@ def parse_arguments(argv=None):
     parser.add_argument("--tune", action="store_true",
                         help="gradient-tune the best individual's relaxation "
                              "factors after evolution")
+    parser.add_argument("--problem-file", default=None,
+                        help="load an .exa2/.exa3/.exa4 spec instead of a "
+                             "named problem")
+    parser.add_argument("--knowledge", default=None,
+                        help=".knowledge file for --problem-file (found "
+                             "beside the spec when omitted)")
+    parser.add_argument("--multihost", action="store_true",
+                        help="split each generation's evaluations across the "
+                             "processes torchrun starts (gloo process group "
+                             "from its environment); needs --seed")
     parser.add_argument("--seed-file", action="append", default=[],
                         help="file whose first non-comment line is a grammar "
                              "string seeded into the initial population "
@@ -138,12 +162,19 @@ def parse_arguments(argv=None):
     args = parser.parse_args(argv)
     if not args.cpu and not torch.cuda.is_available():
         parser.error("no CUDA device: run on a GPU, or pass --cpu")
+    if args.multihost and args.seed is None:
+        parser.error("--multihost needs --seed: every process must breed the same populations")
     return args
 
 
 def _build_problem(args):
-    """The problem the flags describe (scripts/optimize.py:135-166)."""
-    if args.problem == "helmholtz":
+    """The problem the flags describe (scripts/optimize.py:129-166)."""
+    if args.problem_file:
+        problem = load_problem_file(args.problem_file, args.knowledge)
+        problem = problem.with_levels(
+            args.min_level if args.min_level is not None else problem.min_level,
+            args.max_level if args.max_level is not None else problem.max_level)
+    elif args.problem == "helmholtz":
         max_level = (args.max_level if args.max_level is not None
                      else max_level_for_k(args.helmholtz_k0))
         problem = helmholtz_2d(
@@ -241,12 +272,31 @@ def _tune(output_dir, optimizer, generator, best):
     return rho0, rho1, tuned
 
 
+def _multihost_dispatcher(cpu: bool):
+    """A MultiHostDispatcher over a gloo process group, initialised from
+    torchrun's environment (MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE)
+    unless the caller initialised one; on a host with several cards each
+    process takes the card of its LOCAL_RANK."""
+    import torch.distributed as dist
+
+    from evostencils_torch.parallel.dispatch import MultiHostDispatcher
+
+    if not dist.is_initialized():
+        dist.init_process_group(backend="gloo")
+    if not cpu:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)) % torch.cuda.device_count())
+    return MultiHostDispatcher()
+
+
 def run(argv=None) -> Run:
     """Parse `argv`, evolve, write the artifacts and, with --tune, tune."""
     args = parse_arguments(argv)
     problem = _build_problem(args)
     output_dir = args.output or f"results_{problem.name}_torch"
     os.makedirs(output_dir, exist_ok=True)
+    dispatcher = _multihost_dispatcher(args.cpu) if args.multihost else None
+    # Every process breeds the same populations; one writes them.
+    rank = dispatcher.process_index if dispatcher is not None else 0
 
     generator = TorchProgramGenerator(
         problem, device="cpu" if args.cpu else "cuda", ladder_rungs=args.ladder_rungs)
@@ -264,8 +314,10 @@ def run(argv=None) -> Run:
         program_generator=generator,
         convergence_evaluator=convergence_evaluator,
         performance_evaluator=performance_evaluator,
-        checkpoint_directory_path=os.path.join(output_dir, "checkpoints"),
+        checkpoint_directory_path=os.path.join(
+            output_dir, "checkpoints" if rank == 0 else f"checkpoints_rank{rank}"),
         rng=random.Random(args.seed),
+        dispatcher=dispatcher,
     )
     method = {
         "nsga2": optimizer.NSGAII,
@@ -302,11 +354,13 @@ def run(argv=None) -> Run:
           f"{evolution_s:.2f} s, {generator.group_members} of them in "
           f"{generator.groups} same-structure groups; cache hits "
           f"{optimizer._individual_cache_hits}")
-    _write_artifacts(output_dir, args, best, program, pops, logbooks, hofs)
     print(f"\nBest individual:\n{best}")
-    tuning = (_tune(output_dir, optimizer, generator, best)
-              if args.tune and not args.model_based else None)
-    print(f"Results written to {output_dir}/")
+    tuning = None
+    if rank == 0:
+        _write_artifacts(output_dir, args, best, program, pops, logbooks, hofs)
+        if args.tune and not args.model_based:
+            tuning = _tune(output_dir, optimizer, generator, best)
+        print(f"Results written to {output_dir}/")
     return Run(optimizer, generator, best, hofs, evolution_s, tuning)
 
 

@@ -340,6 +340,62 @@ def test_trace_writes_a_chrome_trace_with_device_events(cuda, tmp_path):
     assert any("rb_sweep_kernel" in e.name for e in device_events)
 
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.cuda
+def test_parsed_poisson_champion_on_the_card_matches_the_cpu(cuda):
+    """The exafile champion on the problem parsed from
+    artifacts/problem_specs/2D_FD_Poisson_fromL2.exa2 (levels 5-9, 511²,
+    float32): the card through the sweep kernel at every level where the
+    champion smooths red-black, within 2 % in ρ and ±1 iteration of the CPU,
+    and to the digit of poisson_2d on the card."""
+    from evostencils_torch.problems import load_problem_file
+    from evostencils_torch.utils.champions import parse_champion_file
+
+    tree_string = parse_champion_file(
+        os.path.join(ROOT, "artifacts", "exafile_poisson_champion_r5.txt"))[0]
+    parsed = load_problem_file(
+        os.path.join(ROOT, "artifacts", "problem_specs", "2D_FD_Poisson_fromL2.exa2"))
+    results = {}
+    for name, problem, device in (("card", parsed, cuda), ("cpu", parsed, "cpu"),
+                                  ("hand", poisson_2d(5, 9, dtype=torch.float32), cuda)):
+        pset = _terminals(problem)[0]
+        expr = gp.compile_tree(gp.parse_tree(tree_string, pset), pset)[0]
+        rb_sweep.launches.clear()
+        results[name] = TorchProgramGenerator(problem, device=device).generate_and_evaluate(
+            expr, evaluation_samples=1)[1:] + (dict(rb_sweep.launches),)
+    (rho, it, launches), (rho_cpu, it_cpu, _) = results["card"], results["cpu"]
+    assert 0 < rho < 1 and abs(rho - rho_cpu) <= 0.02 * rho_cpu and abs(it - it_cpu) <= 1
+    assert results["hand"] == results["card"]
+    # The champion smooths red-black at 127²-511²; at 63² only with
+    # single-colour and block Jacobi, which take no kernel.
+    assert sorted(launches) == [(127, 127), (255, 255), (511, 511)], launches
+    assert all(count > 0 for count in launches.values()), launches
+
+
+@pytest.mark.cuda
+def test_thread_pool_dispatcher_on_the_card_matches_serial(cuda):
+    """Two threads share the card: each V(2,1) ω variant's ρ and iterations
+    and the kernel's launches by shape are those of a serial run."""
+    from evostencils_torch.parallel.dispatch import SerialDispatcher, ThreadPoolDispatcher
+
+    problem = poisson_2d(5, 9, dtype=torch.float32)
+    terminals = _terminals(problem)[1]
+    cycles = [reference_cycles.generate_v_cycle(terminals, problem.rhs(), 2, 1, omega=omega)
+              for omega in (0.8, 0.9, 1.0, 1.1)]
+    outcomes = []
+    for dispatcher in (SerialDispatcher(), ThreadPoolDispatcher(2)):
+        generator = TorchProgramGenerator(problem, device=cuda)
+        rb_sweep.launches.clear()
+        results = dispatcher.map(
+            lambda c: generator.generate_and_evaluate(c, evaluation_samples=1), cycles)
+        torch.cuda.synchronize()
+        outcomes.append(([(rho, it) for _, rho, it in results], dict(rb_sweep.launches)))
+    assert outcomes[1] == outcomes[0]
+    assert all(0 < rho < 1 for rho, _ in outcomes[0][0]) and outcomes[0][1]
+
+
 @pytest.mark.cuda
 def test_per_cycle_time_refuses_a_cycle_with_a_host_sync(cuda):
     """Last in the file: a failed capture is the one test here that leaves

@@ -4,15 +4,20 @@ The machine with the GPU has no JAX, so this is what breaks first there;
 and the port keeps its own copies of the reference's array-free layers,
 so it must not reach into `evostencils_tpu` either, not even lazily.  A
 fresh interpreter refuses every `jax`/`jaxlib`/`evostencils_tpu` import,
-imports the port's modules, scripts/torch_optimize.py,
-scripts/torch_evaluate_helmholtz_ladder.py, scripts/torch_headline_1024.py,
-scripts/torch_calibrate_roofline.py, scripts/torch_optimize_intergrid.py and
-chip_smoke (without running its main), builds a grammar and compiles a tree through the port (which
+imports the port's modules (problems/parser.py and parallel/ among them),
+scripts/torch_optimize.py, scripts/torch_evaluate_helmholtz_ladder.py,
+scripts/torch_headline_1024.py, scripts/torch_calibrate_roofline.py,
+scripts/torch_optimize_intergrid.py, the four champion scripts
+(torch_evaluate_reference_solver, torch_evaluate_evolved_solver,
+torch_champion_stats, torch_tune_champions) and chip_smoke (without running
+its main), builds a grammar and compiles a tree through the port (which
 runs the lazy imports inside the IR), builds, compiles and evaluates a
 Helmholtz preconditioner (complex128, the outer BiCGStab solve), evaluates
-a 3D, a variable-coefficient, a linear elasticity and a FAS cycle, runs the
-evolution entry point on the CPU for one generation with --tune, and must
-end with none of them loaded.
+a 3D, a variable-coefficient, a linear elasticity and a FAS cycle, loads
+the four problem specs and runs the parsed FAS operator, runs the
+evolution entry point on the CPU for one generation with --tune and the
+tutorial docs/torch_tutorial.py on the CPU, and must end with none of them
+loaded.
 """
 
 import os
@@ -51,6 +56,9 @@ MODULES = [
     "evostencils_torch.problems.helmholtz",
     "evostencils_torch.problems.elasticity",
     "evostencils_torch.problems.fas",
+    "evostencils_torch.problems.parser",
+    "evostencils_torch.parallel",
+    "evostencils_torch.parallel.dispatch",
     "evostencils_torch.ops.stencil_ops",
     "evostencils_torch.ops.intergrid",
     "evostencils_torch.ops.coarse_solve",
@@ -80,6 +88,10 @@ MODULES = [
     "scripts.torch_headline_1024",
     "scripts.torch_calibrate_roofline",
     "scripts.torch_optimize_intergrid",
+    "scripts.torch_evaluate_reference_solver",
+    "scripts.torch_evaluate_evolved_solver",
+    "scripts.torch_champion_stats",
+    "scripts.torch_tune_champions",
     "chip_smoke",
 ]
 
@@ -156,6 +168,18 @@ assert torch_optimize.main(["--cpu", "--min-level", "3", "--max-level", "5", "--
                             "--lambda", "4", "--generations", "1", "--evaluation-samples", "1",
                             "--seed", "1", "--tune", "--output", output]) == 0
 assert os.path.isfile(os.path.join(output, "program.txt"))
+from evostencils_torch.problems import load_problem_file
+specs = os.path.join({ROOT!r}, "artifacts", "problem_specs")
+for name in sorted(os.listdir(specs)):
+    if not name.endswith(".knowledge"):
+        parsed = load_problem_file(os.path.join(specs, name))
+        assert parsed.rhs_functions is None or parsed.rhs_functions[0](
+            *parsed.interior_coordinates(3)).shape == (7, 7), name
+a = parsed.operator_factories["A"][0](3, parsed.parameters)
+a.derivative_diag(torch.zeros(3)), a.nonlinear_term(torch.zeros(3))
+import runpy
+os.environ.update(TUTORIAL_DEVICE="cpu", TUTORIAL_GENERATIONS="1", TUTORIAL_MU="2")
+runpy.run_path(os.path.join({ROOT!r}, "docs", "torch_tutorial.py"), run_name="__main__")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in {REFUSED!r})
 assert not loaded, loaded
 print("imported", len({MODULES!r}), "modules without jax or evostencils_tpu")

@@ -16,6 +16,7 @@
 
 import hashlib
 import math
+import os
 import random
 
 import jax.numpy as jnp
@@ -25,7 +26,6 @@ import torch
 from evostencils_tpu.ir.transformations import canonical_string as jax_canonical_string
 from evostencils_tpu.optimization.optimizer import Optimizer as JaxOptimizer
 from evostencils_tpu.problems.poisson import poisson_2d as jax_poisson_2d
-from evostencils_torch import NotPortedError
 from evostencils_torch.backend.evaluation import TorchProgramGenerator
 from evostencils_torch.backend.lowering import CycleLowering
 from evostencils_torch.grammar.multigrid import generate_primitive_set, textbook_cycle_string
@@ -33,6 +33,8 @@ from evostencils_torch.ir.transformations import canonical_string
 from evostencils_torch.optimization.optimizer import Optimizer
 from evostencils_torch.problems import build_named_problem, load_problem_file
 from evostencils_torch.problems.poisson import poisson_2d
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 INFINITY = 1e100
 
@@ -239,7 +241,7 @@ def test_entry_points_default_to_the_card():
 
 def test_named_problems():
     """Every name of the reference's registry builds the reference's
-    (name, min_level, max_level); problem files stay unported."""
+    (name, min_level, max_level); a problem file loads by its extension."""
     from evostencils_tpu.problems import build_named_problem as jax_build_named_problem
 
     for name in ("poisson2d", "poisson3d", "poisson2d_var", "elasticity", "helmholtz", "fas"):
@@ -250,8 +252,11 @@ def test_named_problems():
                 reference.name, reference.min_level, reference.max_level), (name, levels)
     with pytest.raises(ValueError):
         build_named_problem("no_such_problem")
-    with pytest.raises(NotPortedError):
-        load_problem_file("spec.exa3")
+    problem = load_problem_file(
+        os.path.join(ROOT, "artifacts", "problem_specs", "2D_FD_Helmholtz_fromL3.exa3"))
+    assert (problem.min_level, problem.max_level, problem.dtype) == (3, 7, torch.complex64)
+    with pytest.raises(ValueError):
+        load_problem_file("spec.exa")
 
 
 FAMILY_LEVELS = {

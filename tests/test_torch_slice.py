@@ -21,6 +21,7 @@ reference's.
   reference's own program carried across, agree to float64 rounding.
 """
 
+import os
 import random
 
 import jax
@@ -44,6 +45,8 @@ from evostencils_torch.backend.lowering import CycleLowering
 from evostencils_torch.backend.vm import CycleVM
 from evostencils_torch.problems import load_problem_file
 from evostencils_torch.problems.poisson import poisson_2d
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 INFINITY = 1e100
 
@@ -157,9 +160,11 @@ def test_unported_feature_raises_and_is_never_scored_infinity():
     assert not issubclass(NotPortedError, (RuntimeError, ValueError, NotImplementedError))
     side = port_side(poisson_2d(3, 5, dtype=torch.float64))
     cycle = side.expressions([])[0]
-    # Problem files are not ported: they must raise, not score ∞.
-    with pytest.raises(NotPortedError):
-        load_problem_file("spec.exa2")
+    # Problem files are ported: a spec loads, an unknown extension raises.
+    spec = os.path.join(ROOT, "artifacts", "problem_specs", "2D_FD_Poisson_fromL2.exa2")
+    assert load_problem_file(spec).field_names == ["u"]
+    with pytest.raises(ValueError):
+        load_problem_file("spec.exa9")
     # FAS evaluates now: a linear problem run as FAS (one stage, no power
     # iteration, no VM) still scores the cycle.
     fas_problem = side.problem._clone(uses_fas=True)

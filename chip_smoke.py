@@ -178,6 +178,21 @@ Problem files, the champion scripts and population dispatch:
    127.0.0.1), 6 ω variants of V(2,1): each process's gathered list equals
    its own serial evaluation, and both exit 0.
 
+The device mesh (parallel/mesh.py):
+
+24. mesh: scripts/torch_mesh_dryrun.py under torchrun, the 511² textbook
+   V(2,2) (levels 5-9, float32) through TorchProgramGenerator(mesh=...):
+   on one card as 2 gloo ranks (NCCL refuses two ranks on one GPU; gloo
+   stages the halos through host buffers) and as 1 NCCL rank; on ≥ 2
+   visible cards as one NCCL rank per card.  The first run's rank 0 also
+   evaluates the same cycle unsharded on the card.  Checks, for every run:
+   exit 0; ρ within 1e-5 relative of the unsharded run with
+   `use_kernels=False` and equal iterations; within 2 % and ±1 of the
+   unsharded default route; 0 kernel launches on every rank (the mesh
+   path runs the plain ops by policy, as the reference's
+   lowering.py:73-81).  Each run's backend, route, slab rows, transfer
+   counts, ms to target and wall time are printed.
+
 Before the last line it prints the kernels as one JSON object and the card's
 `nvidia-smi` name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -190,6 +205,7 @@ import math
 import os
 import random
 import re
+import signal
 import socket
 import subprocess
 import sys
@@ -1765,6 +1781,82 @@ def phase_dispatch(failures: list) -> dict:
     return phase_launches
 
 
+MESH_SCRIPT = os.path.join(ROOT, "scripts", "torch_mesh_dryrun.py")
+
+
+def _mesh_run(backend: str, ranks: int, compare: bool) -> tuple:
+    """scripts/torch_mesh_dryrun.py under torchrun: (exit code, the ranks'
+    JSON records, the output's tail)."""
+    command = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(ranks),
+               "--master_port", str(_free_port()), MESH_SCRIPT, "--backend", backend,
+               "--timeout", "120"] + (["--compare"] if compare else [])
+    # A session of its own: on a timeout the launcher and its ranks go
+    # together.
+    proc = subprocess.Popen(command, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=400)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        return None, [], "timed out after 400 s"
+    records = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    return proc.returncode, sorted(records, key=lambda r: r["rank"]), (out + err)[-2000:]
+
+
+def phase_mesh(failures: list) -> int:
+    """The 511² V(2,2) on a device mesh against the same cycle unsharded;
+    returns the kernel's launches on the mesh path, over all ranks."""
+    start = time.perf_counter()
+    cards = torch.cuda.device_count()
+    configs = [("nccl", cards)] if cards >= 2 else [("gloo", 2), ("nccl", 1)]
+    record = {"phase": "mesh", "cards": cards, "runs": []}
+    unsharded = None
+    launches = 0
+    for index, (backend, ranks) in enumerate(configs):
+        t0 = time.perf_counter()
+        rc, records, tail = _mesh_run(backend, ranks, compare=index == 0)
+        run = {"backend": backend, "ranks": ranks, "rc": rc, "s": time.perf_counter() - t0}
+        record["runs"].append(run)
+        if rc != 0 or len(records) != ranks:
+            failures.append(f"mesh: {backend} × {ranks} exited {rc} with {len(records)} "
+                            f"records: {tail}")
+            continue
+        b = records[0]["B"]
+        unsharded = records[0].get("unsharded", unsharded)
+        run.update({k: b[k] for k in ("rho", "iterations", "ms_to_target", "wall_s", "route",
+                                      "rows", "sharded_levels", "counts")})
+        run["kernel_launches"] = [r["B"]["kernel_launches"] for r in records]
+        run["residual0_A"] = records[0]["A"]["residuals"][0]
+        launches += sum(run["kernel_launches"])
+        if any(run["kernel_launches"]):
+            failures.append(f"mesh: {backend} × {ranks} launched the kernel "
+                            f"{run['kernel_launches']} times")
+        if any((r["B"]["rho"], r["B"]["iterations"]) != (b["rho"], b["iterations"])
+               for r in records):
+            failures.append(f"mesh: the ranks of {backend} × {ranks} disagree")
+        if unsharded is None:
+            failures.append("mesh: no unsharded run to compare with")
+            continue
+        plain, default = unsharded["plain"], unsharded["default"]
+        if not (abs(b["rho"] - plain["rho"]) <= 1e-5 * plain["rho"]
+                and b["iterations"] == plain["iterations"]):
+            failures.append(f"mesh: {backend} × {ranks} ρ {b['rho']} / {b['iterations']} vs "
+                            f"unsharded plain {plain['rho']} / {plain['iterations']}")
+        if not (abs(b["rho"] - default["rho"]) <= 0.02 * default["rho"]
+                and abs(b["iterations"] - default["iterations"]) <= 1):
+            failures.append(f"mesh: {backend} × {ranks} ρ {b['rho']} / {b['iterations']} vs "
+                            f"unsharded default {default['rho']} / {default['iterations']}")
+    record["unsharded"] = unsharded
+    # The JAX package's CPU virtual-mesh run (a cross-check, not a target).
+    record["reference_cpu_mesh"] = {"rho": 0.0612, "iterations": 10, "file": "MULTICHIP_r05.json"}
+    record["mesh_launches"] = launches
+    record["phase_s"] = time.perf_counter() - start
+    emit(record)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing was run",
@@ -1796,6 +1888,7 @@ def main() -> int:
     family_launches["problem_file_fas"] = phase_problem_file_fas(failures)
     scripts_launches = phase_scripts(failures)
     dispatch_launches = phase_dispatch(failures)
+    mesh_launches = phase_mesh(failures)
     if failures:
         for failure in failures:
             print(f"chip_smoke FAILED: {failure}", file=sys.stderr)
@@ -1818,6 +1911,8 @@ def main() -> int:
                for phase, by_shape in (("problem_file", problem_file_launches),
                                        ("scripts", scripts_launches),
                                        ("dispatch", dispatch_launches))},
+            # The mesh path runs the plain ops by policy: checked to be 0.
+            "mesh_launches": mesh_launches,
             "max_abs_err": max(e for s in CHECKED if role(s) == name
                                for e in kernel[s]["max_abs_err"].values()),
             "ms": kernel[timed]["ms"], "plain_ms": kernel[timed]["plain_ms"],

@@ -34,7 +34,8 @@ and owns every layer that touches arrays:
     optimization/optimizer.py, relaxation.py: the evolutionary optimizer
                 and the ω tuners (torch.autograd, CMA-ES)
     parallel/   population dispatch: a thread pool, or a torch.distributed
-                process group splitting each generation's evaluations
+                process group splitting each generation's evaluations; the
+                (dp, sp) device mesh: grids split by rows, halo exchanges
     interop.py  carries the reference's arrays, coefficient planes, VM
                 programs and solve specs across to torch
 

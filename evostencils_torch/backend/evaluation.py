@@ -33,6 +33,18 @@ host loops here: the stage reads each cycle's residual norm back to decide
 whether to go on, and decides in the tensor's dtype as the reference does
 on the device, so the executed count and the exit reason match.  Times
 are CUDA-event spans on a GPU and `perf_counter` spans on the CPU.
+
+`TorchProgramGenerator(problem, mesh=...)` evaluates on a (dp, sp) device
+mesh (parallel/mesh.py), one process per rank, every rank calling it for
+the same individuals in the same order: the state is split by rows over
+`sp` and the same on every `dp` row (the reference's P("sp", None)).  The
+probe state is made whole and cut, so a sharded run starts from the
+unsharded run's state; every norm a loop decides on is all-reduced; the
+float64 host residual gathers the slabs and cuts its result; and every
+measured time is the largest over all ranks, so every rank scores, and
+breeds, alike.  2D and 3D Poisson, variable coefficients and elasticity
+run under a mesh; FAS, the outer-Krylov (Helmholtz) problems and complex
+dtypes raise `NotPortedError` there.
 """
 
 from __future__ import annotations
@@ -45,13 +57,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from evostencils_torch import dtype_is_64bit, dtype_is_complex, numpy_dtype
+from evostencils_torch import NotPortedError, dtype_is_64bit, dtype_is_complex, numpy_dtype
 from evostencils_torch.backend.lowering import CycleLowering
 from evostencils_torch.backend.vm import CycleVM, Program
 from evostencils_torch.ir import base, system
 from evostencils_torch.ir.transformations import canonical_string, collect_cycles
 from evostencils_torch.ops import krylov
 from evostencils_torch.ops import stencil_ops as sops
+from evostencils_torch.parallel.mesh import gather_state
 from evostencils_torch.stencils import periodic
 
 # A power-iteration rate of exactly 0.0 is an f32 underflow of a superb
@@ -66,6 +79,9 @@ GROUP_SIZE_LIMIT = 16
 _DEVICE_ERRORS = (torch.cuda.OutOfMemoryError,) + (
     (torch.AcceleratorError,) if hasattr(torch, "AcceleratorError") else ()
 )
+# A failed transfer between ranks ends the run on every rank: it is not a
+# bad individual (also a RuntimeError).
+_RANK_ERRORS = (torch.distributed.DistError,)
 
 
 def _host_norm(state) -> float:
@@ -92,6 +108,8 @@ class TorchProgramGenerator:
         measure_reduction: Optional[float] = None,
         device="cuda",
         ladder_rungs: int = 3,
+        mesh=None,
+        replicate_below: int = 64,
     ):
         self.problem = problem
         self.device = torch.device(device)
@@ -116,7 +134,11 @@ class TorchProgramGenerator:
             # ones in stage windows of 1e-4, well above their floor.
             measure_reduction = self.epsilon if is_f64 else max(self.epsilon, 1e-4)
         self.measure_reduction = measure_reduction
-        self.lowering = CycleLowering(self.dtype, self.device)
+        if mesh is not None:
+            self._refuse_under_mesh(problem, self.dtype)
+        self.lowering = CycleLowering(
+            self.dtype, self.device, mesh=mesh, replicate_below=replicate_below)
+        self.layout = self.lowering.layout
         self._solver_cache = {}
         self._vms = {}
         # Solver construction (VM opcodes, solver caches, hit counts) is
@@ -141,6 +163,19 @@ class TorchProgramGenerator:
         # iterate, or "unused": it reduced nothing), its iterations and the
         # number of full-cap stages that ran.
         self.last_outer_solve = None
+
+    @staticmethod
+    def _refuse_under_mesh(problem, dtype):
+        """The families whose ops are not split over a mesh yet: no
+        unsharded run stands in for them."""
+        name = getattr(problem, "name", "problem")
+        if getattr(problem, "uses_fas", False):
+            raise NotPortedError(f"FAS ({name}): a nonlinear problem under a device mesh")
+        if getattr(problem, "outer_solver", None):
+            raise NotPortedError(
+                f"Helmholtz ({name}): the outer Krylov solve under a device mesh")
+        if dtype_is_complex(dtype):
+            raise NotPortedError(f"{name} in {dtype} under a device mesh")
 
     def vm_stats(self) -> dict:
         total = self.vm_hits + self.vm_misses
@@ -324,8 +359,12 @@ class TorchProgramGenerator:
         # defines the stage's reduction.
         patience = 5
 
+        # The finest grid's slab on a mesh: its norms are all-reduced, so
+        # every rank reads the same value and takes the same branch.
+        slab = lowering._slab(operator.grid[0])
+
         def residual_norm(u, f):
-            return sops.l2_norm(sops.tree_sub(f, lowering.system_apply(operator, u)))
+            return sops.l2_norm(sops.tree_sub(f, lowering.system_apply(operator, u)), slab)
 
         def stage(u0, rhs, omegas):
             """(best_res, res0, best_it, best_u, executed); the exit test is
@@ -355,7 +394,7 @@ class TorchProgramGenerator:
             log_acc = None
             for _ in range(block_len):
                 e = step(e, zf, omegas)
-                n = sops.l2_norm(e)
+                n = sops.l2_norm(e, slab)
                 tiny = torch.finfo(n.dtype).tiny
                 safe = torch.where(n > 0, n, 1.0)
                 e = tuple(x / safe for x in e)
@@ -391,7 +430,9 @@ class TorchProgramGenerator:
 
     def _timed(self, solve, *args) -> float:
         """Seconds one solve(*args) takes on the device: a CUDA-event span
-        on a GPU, which ends when the device has finished."""
+        on a GPU, which ends when the device has finished.  On a mesh the
+        largest span of all ranks, so that every rank's fitness is the
+        same."""
         if self.device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -399,10 +440,14 @@ class TorchProgramGenerator:
             solve(*args)
             end.record()
             end.synchronize()
-            return start.elapsed_time(end) / 1e3
-        t0 = time.perf_counter()
-        solve(*args)
-        return time.perf_counter() - t0
+            seconds = start.elapsed_time(end) / 1e3
+        else:
+            t0 = time.perf_counter()
+            solve(*args)
+            seconds = time.perf_counter() - t0
+        if self.layout is not None:
+            seconds = self.layout.all_reduce_max(seconds, self.device)
+        return seconds
 
     def _median_time(self, solve, args, evaluation_samples) -> float:
         """Median seconds of solve(*args) over `evaluation_samples` runs."""
@@ -410,15 +455,23 @@ class TorchProgramGenerator:
         self.run_time_total += sum(times)
         return times[len(times) // 2]
 
-    def _to_host(self, state):
-        """A device state in the host accumulation dtype."""
+    def _to_host(self, state, grids=None):
+        """A device state in the host accumulation dtype; on a mesh the whole
+        fields of `grids`, gathered from the slabs."""
+        if self.layout is not None:
+            state = gather_state(state, [g.interior_shape for g in grids], self.layout)
         return tuple(x.cpu().numpy().astype(self._np_acc) for x in state)
 
     def _to_device(self, host_state):
-        return tuple(
-            torch.from_numpy(np.ascontiguousarray(x, dtype=self._np_dtype)).to(self.device)
-            for x in host_state
-        )
+        """Whole host fields on the device; on a mesh this rank's rows."""
+        out = []
+        for x in host_state:
+            x = np.asarray(x)
+            slab = None if self.layout is None else self.layout.slab(x.shape)
+            x = x if slab is None else slab.cut(x)
+            out.append(torch.from_numpy(np.ascontiguousarray(x, dtype=self._np_dtype)).to(
+                self.device))
+        return tuple(out)
 
     def _probe_state(self, expression):
         """(u0, f, e0, zf) on the device at the expression's level: the
@@ -510,6 +563,8 @@ class TorchProgramGenerator:
             evaluate = self._generate_and_evaluate_cycle
         try:
             return evaluate(expression, infinity, evaluation_samples)
+        except _RANK_ERRORS:
+            raise
         except _DEVICE_ERRORS:
             self._device_failed()
             return infinity, infinity, infinity
@@ -562,11 +617,12 @@ class TorchProgramGenerator:
                     break
                 try:
                     r64 = self._host_residual(
-                        operator, self._to_host(best_u), self._to_host(rhs))
+                        operator, self._to_host(best_u, operator.grid),
+                        self._to_host(rhs, operator.grid))
                 except NotImplementedError:
                     break
                 rhs = self._to_device(r64)
-        except _DEVICE_ERRORS:
+        except _DEVICE_ERRORS + _RANK_ERRORS:
             raise
         except (RuntimeError, ValueError, NotImplementedError, FloatingPointError):
             return infinity, infinity, infinity
@@ -859,6 +915,8 @@ class TorchProgramGenerator:
             self._consecutive_device_failures = 0
             self.groups += 1
             self.group_members += len(expressions)
+        except _RANK_ERRORS:
+            raise
         except (RuntimeError, ValueError, TypeError, NotImplementedError, FloatingPointError):
             return one_by_one()
 

@@ -40,6 +40,17 @@ fused sweep is float32 only, as the reference's Pallas gate, which also
 refuses 3D, multi-field, variable and nonlinear operators.  The
 reference's `lax.scan` smoothing chains exist to cut XLA compile time;
 eager torch applies the same smoothing steps one after another.
+
+`CycleLowering(..., mesh=...)` lowers for a (dp, sp) device mesh
+(parallel/mesh.py): every state is this rank's rows of its grid, every op
+takes the grid's slab (halo exchanges, global row offsets, all-reduced
+inner products), and the kernel is off, as the reference turns its Pallas
+kernels off under a mesh (evostencils_tpu/backend/lowering.py:73-81).  A
+level whose slabs would hold fewer than `replicate_below` rows is held
+whole on every rank: the RESTRICT into it gathers, the PROLONG out of it
+cuts this rank's rows, and a dense coarse solve on a level still split
+gathers its right-hand side.  Nonlinear (FAS) operators raise
+`NotPortedError` under a mesh.
 """
 
 from __future__ import annotations
@@ -50,7 +61,7 @@ from typing import Callable, Sequence, Tuple
 import numpy as np
 import torch
 
-from evostencils_torch import dtype_is_complex, numpy_dtype
+from evostencils_torch import NotPortedError, dtype_is_complex, numpy_dtype
 from evostencils_torch.ir import base, system
 from evostencils_torch.ir import partitioning as part
 from evostencils_torch.ir.krylov import KrylovSubspaceMethod
@@ -90,10 +101,20 @@ def _center_plane(offsets, planes):
 
 
 class CycleLowering:
-    def __init__(self, dtype=torch.float32, device="cuda", use_kernels=True):
+    def __init__(self, dtype=torch.float32, device="cuda", use_kernels=True, mesh=None,
+                 replicate_below=64):
         self.dtype = dtype
         self.device = torch.device(device)
         self.use_kernels = use_kernels
+        self.layout = None
+        if mesh is not None:
+            from evostencils_torch.parallel.mesh import MeshLayout
+
+            self.layout = MeshLayout(mesh, replicate_below)
+            # The reference's explicit multi-chip policy: the kernel
+            # addresses the whole grid, so a mesh lowers through the plain
+            # ops; never a silent gather.
+            self.use_kernels = False
         self._dense_specs = {}
         self._block_specs = {}
         self._center_inv_cache = {}
@@ -103,6 +124,21 @@ class CycleLowering:
     # ------------------------------------------------------------------
     # Operator application helpers
     # ------------------------------------------------------------------
+
+    def _slab(self, grid):
+        """This rank's slab of `grid` (parallel/mesh.py), or None: no mesh,
+        or a grid held whole by the replication rule."""
+        return None if self.layout is None else self.layout.slab(grid.interior_shape)
+
+    def local_shape(self, global_shape):
+        """The shape of this rank's part of a grid of `global_shape`."""
+        return tuple(global_shape) if self.layout is None else self.layout.local_shape(global_shape)
+
+    def _cut(self, grid, array: np.ndarray) -> np.ndarray:
+        """This rank's rows of a whole-grid numpy array (coefficient and
+        inverse planes)."""
+        slab = self._slab(grid)
+        return array if slab is None else slab.cut(array)
 
     def _grid_key(self, gen, grid):
         """Cache key of a generator on a grid.  The caches keep `gen`
@@ -119,8 +155,8 @@ class CycleLowering:
             offsets, planes = gen.generate_coefficient_arrays(operator.grid)
             np_dtype = numpy_dtype(self.dtype)
             self._plane_cache[key] = (gen, tuple(offsets), [
-                torch.from_numpy(np.ascontiguousarray(np.asarray(p, dtype=np_dtype))).to(
-                    self.device)
+                torch.from_numpy(np.ascontiguousarray(
+                    self._cut(operator.grid, np.asarray(p, dtype=np_dtype)))).to(self.device)
                 for p in planes
             ])
         _, offsets, planes = self._plane_cache[key]
@@ -136,12 +172,13 @@ class CycleLowering:
         if _is_nonlinear(gen):
             raise RuntimeError(
                 "Nonlinear entries must be applied through system_apply with the iterate")
+        slab = self._slab(entry.grid)
         if isinstance(entry, base.Operator) and _is_variable(gen):
-            return sops.apply_variable_stencil(field, *self._coefficient_planes(entry))
+            return sops.apply_variable_stencil(field, *self._coefficient_planes(entry), slab)
         stencil = entry.generate_stencil()
         if stencil is None:
             raise RuntimeError(f"Entry {entry!r} has no stencil")
-        return sops.apply_stencil(field, stencil)
+        return sops.apply_stencil(field, stencil, slab)
 
     def system_apply(self, operator: system.Operator, state: Sequence) -> Tuple:
         out = []
@@ -150,6 +187,9 @@ class CycleLowering:
             for entry, field in zip(row, state):
                 gen = getattr(entry, "stencil_generator", None)
                 if _is_nonlinear(gen):
+                    if self.layout is not None:
+                        raise NotPortedError(
+                            "FAS: a nonlinear operator under a device mesh")
                     term = gen.apply(field, entry.grid)
                 elif isinstance(entry, base.ZeroOperator):
                     continue
@@ -184,13 +224,41 @@ class CycleLowering:
             if isinstance(stencil, periodic.PeriodicStencil):
                 stencil = stencil.as_constant()
             cf = self._coarsening_factors(entry.fine_grid, entry.coarse_grid)
+            fine_shape = entry.fine_grid.interior_shape
+            coarse_shape = entry.coarse_grid.interior_shape
+            fine_slab, coarse_slab = self._slab(entry.fine_grid), self._slab(entry.coarse_grid)
             if isinstance(entry, base.Restriction):
-                out.append(intergrid.restrict(state[i], stencil, entry.coarse_grid.interior_shape, cf))
+                out.append(self._restrict(state[i], stencil, coarse_shape, cf,
+                                          fine_slab, coarse_slab))
             elif isinstance(entry, base.Prolongation):
-                out.append(intergrid.prolong(state[i], stencil, entry.fine_grid.interior_shape, cf))
+                out.append(self._prolong(state[i], stencil, fine_shape, cf,
+                                         fine_slab, coarse_slab))
             else:
                 raise RuntimeError(f"Not an intergrid entry: {entry!r}")
         return tuple(out)
+
+    # A rank's fine slab holds the fine row of every coarse row it owns, so
+    # a level held whole has only levels held whole below it.
+
+    def _restrict(self, fine, stencil, coarse_shape, cf, fine_slab, coarse_slab):
+        """Restriction, across the replication boundary where the coarse
+        level is held whole: this rank's coarse rows, then the gather."""
+        if fine_slab is None:
+            return intergrid.restrict(fine, stencil, coarse_shape, cf)
+        coarse = intergrid.restrict(fine, stencil, coarse_shape, cf, fine_slab)
+        if coarse_slab is None:
+            coarse = self.layout.gather(coarse, self.layout.rows_of(coarse_shape))
+        return coarse
+
+    def _prolong(self, coarse, stencil, fine_shape, cf, fine_slab, coarse_slab):
+        """Prolongation, back across the replication boundary: a coarse level
+        held whole gives this rank the coarse rows its fine rows need."""
+        if fine_slab is None:
+            return intergrid.prolong(coarse, stencil, fine_shape, cf)
+        if coarse_slab is None:
+            clo, chi = fine_slab.coarse_rows(cf[0])
+            coarse = coarse[clo:chi]
+        return intergrid.prolong(coarse, stencil, fine_slab.local_shape, cf, fine_slab)
 
     # ------------------------------------------------------------------
     # Smoothers: Inverse(B) · r
@@ -245,10 +313,11 @@ class CycleLowering:
             else:
                 np_dtype = numpy_dtype(self.dtype)
                 n = inv.shape[-1]
+                grid = operator.entries[0][0].grid
                 result = ("planes", [
                     [
-                        torch.from_numpy(np.ascontiguousarray(inv[..., i, j], dtype=np_dtype)).to(
-                            self.device)
+                        torch.from_numpy(np.ascontiguousarray(
+                            self._cut(grid, inv[..., i, j]), dtype=np_dtype)).to(self.device)
                         if np.any(inv[..., i, j]) else None
                         for j in range(n)
                     ]
@@ -272,7 +341,8 @@ class CycleLowering:
                 center = _center_plane(*gen.generate_coefficient_arrays(entry.grid))
                 inv = np.asarray(1.0 / center, dtype=numpy_dtype(self.dtype))
                 self._diagonal_inv_cache[key] = (
-                    gen, torch.from_numpy(np.ascontiguousarray(inv)).to(self.device))
+                    gen, torch.from_numpy(np.ascontiguousarray(
+                        self._cut(entry.grid, inv))).to(self.device))
             invs.append(self._diagonal_inv_cache[key][1])
         return invs
 
@@ -309,7 +379,7 @@ class CycleLowering:
                 return smoothers.collective_jacobi_apply(r_state, data)
             return smoothers.collective_jacobi_apply_variable(r_state, data)
         if isinstance(B, system.Operator):
-            return self._block_solve_spec(B).apply(r_state)
+            return self._block_solve_spec(B).apply(r_state, self._slab(B.grid[0]))
         if isinstance(B, base.Addition) and isinstance(B.operand2, system.Jacobian):
             # FAS Newton smoother D + J: n Newton steps on the point-local
             # nonlinear equation.  On a linear operator it degenerates to
@@ -384,11 +454,18 @@ class CycleLowering:
         nonlinear = self._nonlinear_entries(solver.operator)
         if nonlinear is not None:
             return self._nonlinear_coarse_solve(solver.operator, nonlinear, r_state, rhs_expr, ev)
+        slab = self._slab(solver.operator.grid[0])
         if expr is None:
-            return self._dense_spec(solver.operator).apply(r_state)
+            if slab is None:
+                return self._dense_spec(solver.operator).apply(r_state)
+            # The dense solve needs the whole vector: a coarsest level that
+            # the replication rule left split gathers it (counted).
+            whole = tuple(self.layout.gather(r, slab) for r in r_state)
+            return tuple(slab.cut(x) for x in self._dense_spec(solver.operator).apply(whole))
         if isinstance(expr, KrylovSubspaceMethod):
             apply_a = partial(self.system_apply, expr.operator)
-            return krylov.SOLVERS[expr.name](apply_a, tuple(r_state), expr.number_of_iterations)
+            return krylov.SOLVERS[expr.name](
+                apply_a, tuple(r_state), expr.number_of_iterations, slab=slab)
         if hasattr(expr, "apply_as_solver"):
             # Nested evolved cycle from a previous optimization run
             # (multi-run level splitting): run it once on (0, r).
@@ -439,6 +516,7 @@ class CycleLowering:
         def step(u: Tuple, f: Tuple) -> Tuple:
             return self._walk(expression, u, f, None)
 
+        step.layout = self.layout
         return step
 
     def lower_parameterized(self, expression: base.Expression):
@@ -456,6 +534,7 @@ class CycleLowering:
                 return self._walk(expression, u, f, lambda node: omegas[slots[id(node)]])
             return self._walk(expression, u, f, lambda node: float(omegas[slots[id(node)]]))
 
+        step.layout = self.layout
         return step, omega_values
 
     def _walk(self, expression, u, f, omega_lookup):
@@ -472,7 +551,8 @@ class CycleLowering:
     def _zeros_for(self, node) -> Tuple:
         grids = node.grid if isinstance(node.grid, list) else [node.grid]
         return tuple(
-            torch.zeros(g.interior_shape, dtype=self.dtype, device=self.device) for g in grids
+            torch.zeros(self.local_shape(g.interior_shape), dtype=self.dtype, device=self.device)
+            for g in grids
         )
 
     def _eval(self, node, ev, u, f, omega_lookup):
@@ -501,7 +581,8 @@ class CycleLowering:
             if isinstance(op1, KrylovSubspaceMethod):
                 apply_a = partial(self.system_apply, op1.operator)
                 return krylov.SOLVERS[op1.name](
-                    apply_a, ev(node.operand2), op1.number_of_iterations)
+                    apply_a, ev(node.operand2), op1.number_of_iterations,
+                    slab=self._slab(op1.operator.grid[0]))
             if isinstance(op1, system.InterGridOperator):
                 return self.intergrid_apply(op1, ev(node.operand2))
             if isinstance(op1, system.Operator):
@@ -552,7 +633,11 @@ class CycleLowering:
         fused = self._try_fused_rb_sweep(B, A, u_cur, f_val, omega)
         if fused is not None:
             return fused
-        masks_per_field = [sops.red_black_masks(tuple(x.shape), x.dtype, x.device) for x in u_cur]
+        slabs = [self._slab(g) for g in A.grid]
+        masks_per_field = [
+            sops.red_black_masks(tuple(x.shape), x.dtype, x.device, 0 if s is None else s.lo % 2)
+            for x, s in zip(u_cur, slabs)
+        ]
         for color in range(2):
             r = sops.tree_sub(tuple(f_val), self.system_apply(A, u_cur))
             corr = self.smoother_apply(B, r, u_cur)
@@ -598,6 +683,7 @@ class CycleLowering:
             if not stencil.is_uniform():
                 return None
             stencil = stencil.as_constant()
-        if not rb_sweep.supports_rb_sweep(tuple(u0[0].shape), stencil, u0[0].dtype):
+        if not rb_sweep.supports_rb_sweep(tuple(u0[0].shape), stencil, u0[0].dtype,
+                                          self._slab(entry.grid)):
             return None
         return (rb_sweep.red_black_collective_jacobi_sweep(u0[0], f_val[0], omega, stencil),)

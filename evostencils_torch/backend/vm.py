@@ -26,6 +26,10 @@ builds for outer-Krylov (Helmholtz) problems to keep its compiled
 interpreter small.  Nothing is compiled here, but the rule decides which
 individuals translate, and only those are probed before the outer solve
 (backend/evaluation.py), so the fitness depends on it and the port keeps it.
+
+On a lowering for a device mesh the branches run on this rank's slabs
+(backend/lowering.py): the levels' iterates and right-hand sides are
+allocated in the local shapes, and the ops exchange halos themselves.
 """
 
 from __future__ import annotations
@@ -133,7 +137,8 @@ class CycleVM:
                 r = sops.tree_sub(f[level], lowering.system_apply(A, u[level]))
                 f_c = lowering.intergrid_apply(R, r)
                 u_c = tuple(
-                    torch.zeros(s, dtype=lowering.dtype, device=lowering.device)
+                    torch.zeros(lowering.local_shape(s), dtype=lowering.dtype,
+                                device=lowering.device)
                     for s in coarse_shapes
                 )
                 return (_replace(u, level + 1, u_c), _replace(f, level + 1, f_c))
@@ -323,7 +328,7 @@ class CycleVM:
 
         def zeros(level):
             return tuple(
-                torch.zeros(s, dtype=lowering.dtype, device=lowering.device)
+                torch.zeros(lowering.local_shape(s), dtype=lowering.dtype, device=lowering.device)
                 for s in shapes[level]
             )
 
@@ -336,4 +341,5 @@ class CycleVM:
                 state = branches[op](state, omega)
             return state[0][0]
 
+        step.layout = lowering.layout
         return step

@@ -7,7 +7,9 @@ coefficient planes of a variable-coefficient stencil generator, and the
 constants of a roofline model.
 These functions turn them into the port's tensors and specs on a given
 device and dtype, so a test can feed the JAX package's own data to both
-sides.  They read plain numpy attributes and import nothing of JAX.
+sides, and (`state_to_slabs`, `state_from_slabs`) cut a whole state into
+this rank's rows of a device mesh and put it back together.  They read
+plain numpy attributes and import nothing of JAX.
 """
 
 from __future__ import annotations
@@ -27,6 +29,27 @@ def state_to_torch(state, device, dtype):
     return tuple(
         torch.from_numpy(np.array(x, dtype=np_dtype)).to(device) for x in state
     )
+
+
+def state_to_slabs(state, layout, device, dtype):
+    """This rank's rows (parallel/mesh.py `MeshLayout`) of each whole field
+    of a numpy state, as tensors; a field of a replicated grid stays
+    whole."""
+    np_dtype = numpy_dtype(dtype)
+    out = []
+    for x in state:
+        x = np.asarray(x, dtype=np_dtype)
+        slab = layout.slab(x.shape)
+        out.append(torch.from_numpy(np.ascontiguousarray(x if slab is None else slab.cut(x))).to(
+            device))
+    return tuple(out)
+
+
+def state_from_slabs(state, global_shapes, layout):
+    """The whole numpy fields of a state held in slabs, on every rank."""
+    from evostencils_torch.parallel.mesh import gather_state
+
+    return tuple(x.cpu().numpy() for x in gather_state(state, global_shapes, layout))
 
 
 def planes_to_torch(offsets_and_planes, device, dtype):

@@ -53,7 +53,7 @@ def _stencil_radius(entries) -> int:
     return max((max(abs(o) for o in off) for off, _ in entries), default=0)
 
 
-def supports_rb_sweep(shape, stencil, dtype) -> bool:
+def supports_rb_sweep(shape, stencil, dtype, slab=None) -> bool:
     """The gate: 2D, float32, a real constant stencil within the halo; above
     512² cells, as the reference's row-blocked route, more than 128 rows and
     at most 16384² cells (evostencils_tpu/ops/pallas_kernels.py:119-138).
@@ -61,7 +61,15 @@ def supports_rb_sweep(shape, stencil, dtype) -> bool:
     One difference of route, not of result: up to 512² cells the reference
     takes any radius, while this kernel is instantiated for radius ≤ 4 only,
     so a wider stencil takes the plain masked half-sweeps, which compute the
-    same step."""
+    same step.
+
+    A `slab` (a state split by rows over a device mesh) is refused, as the
+    reference turns its kernels off under a mesh
+    (evostencils_tpu/backend/lowering.py:73-81): the kernel addresses the
+    whole grid, and its black half-step reads red values of the same launch
+    across the slab's edge."""
+    if slab is not None:
+        return False
     if not (
         len(shape) == 2
         and isinstance(stencil, constant.Stencil)

@@ -8,6 +8,12 @@ evostencils_tpu/ops/smoothers.py).
 
 The small dense inverses are computed with numpy at lowering time; at run
 time only elementwise ops and one batched matmul remain.
+
+On a slab of a grid split by rows (parallel/mesh.py) the point smoothers
+are elementwise and need nothing; the block solve reads up to period−1
+rows across the slab's edge, so it takes that many halo rows, tiles its
+coefficient planes from the slab's global row, and its matmul form solves
+the whole blocks that cover the slab and keeps the slab's rows.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch.nn.functional as F
 
 from evostencils_torch import dtype_is_complex, numpy_dtype
 from evostencils_torch.ops.stencil_ops import scalar
+from evostencils_torch.parallel.mesh import halo_exchange
 from evostencils_torch.stencils import periodic
 
 
@@ -125,29 +132,45 @@ class BlockSolveSpec:
                 if by_d:
                     self.shift_planes[(i, j)] = by_d
 
-    def _periodic_plane(self, key, plane: np.ndarray, shape, device) -> torch.Tensor:
-        """Full-shape tensor with value plane[x mod period], made once per
-        (plane, shape, device) and kept."""
-        cache_key = (key, tuple(shape), str(device))
+    def _periodic_plane(self, key, plane: np.ndarray, shape, device, row_offset=0) -> torch.Tensor:
+        """Full-shape tensor with value plane[x mod period], x the global
+        index (a slab's rows start at global row `row_offset`), made once per
+        (plane, shape, device, row phase) and kept."""
+        phase = row_offset % self.period[0]
+        cache_key = (key, tuple(shape), str(device), phase)
         tiled = self._tiled.get(cache_key)
         if tiled is None:
-            reps = [-(-n // p) for n, p in zip(shape, self.period)]
-            full = np.tile(plane, reps)[tuple(slice(0, n) for n in shape)]
+            extent = (shape[0] + phase,) + tuple(shape[1:])
+            reps = [-(-n // p) for n, p in zip(extent, self.period)]
+            full = np.tile(plane, reps)[(slice(phase, extent[0]),)
+                                        + tuple(slice(0, n) for n in shape[1:])]
             tiled = torch.from_numpy(np.ascontiguousarray(full)).to(device)
             self._tiled[cache_key] = tiled
         return tiled
 
-    def apply(self, r_fields: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    def apply(self, r_fields: Sequence[torch.Tensor], slab=None) -> Tuple[torch.Tensor, ...]:
         """The reference's dispatch rule, kept so that parity compares the
         same arithmetic: a period trivial along the last axis takes the
         matmul form, any other the masked form."""
         if self.period[-1] == 1:
-            return self.apply_matmul(r_fields)
-        return self.apply_masked(r_fields)
+            return self.apply_matmul(r_fields, slab)
+        return self.apply_masked(r_fields, slab)
 
-    def apply_masked(self, r_fields: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    def apply_masked(self, r_fields: Sequence[torch.Tensor], slab=None) -> Tuple[torch.Tensor, ...]:
         shape = tuple(r_fields[0].shape)
         device = r_fields[0].device
+        halo = self.period[0] - 1
+        if slab is None or halo == 0:
+            def shifted(j, d):
+                return _shift(r_fields[j], d)
+        else:
+            # Shifts within a block reach at most period−1 rows across the
+            # slab's edge: shift the halo'd rows and keep the slab's.
+            padded = [halo_exchange(r, slab, halo) for r in r_fields]
+
+            def shifted(j, d):
+                return _shift(padded[j], d)[halo:halo + shape[0]]
+        row_offset = 0 if slab is None else slab.lo
         out = []
         for i in range(self.n_fields):
             acc = None
@@ -159,15 +182,27 @@ class BlockSolveSpec:
                     vals = plane[plane != 0]
                     if vals.size and np.all(vals == vals.flat[0]) and not np.any(plane == 0):
                         # Uniform plane: scalar weight, no masking at all.
-                        term = scalar(vals.flat[0]) * _shift(r_fields[j], d)
+                        term = scalar(vals.flat[0]) * shifted(j, d)
                     else:
-                        coeffs = self._periodic_plane((i, j, d), plane, shape, device)
-                        term = coeffs * _shift(r_fields[j], d)
+                        coeffs = self._periodic_plane((i, j, d), plane, shape, device, row_offset)
+                        term = coeffs * shifted(j, d)
                     acc = term if acc is None else acc + term
             out.append(acc if acc is not None else torch.zeros_like(r_fields[i]))
         return tuple(out)
 
-    def apply_matmul(self, r_fields: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    def apply_matmul(self, r_fields: Sequence[torch.Tensor], slab=None) -> Tuple[torch.Tensor, ...]:
+        if slab is not None and self.period[0] > 1:
+            # The whole blocks that cover the slab: global rows [a, b), a
+            # and b on the period, at most period−1 rows beyond the slab on
+            # either side (zero past the grid's edge, as the padding of the
+            # whole grid); solve them and keep the slab's rows.
+            p0, halo = self.period[0], self.period[0] - 1
+            a = slab.lo // p0 * p0
+            b = -(-slab.hi // p0) * p0
+            start = a - (slab.lo - halo)
+            blocks = [halo_exchange(r, slab, halo)[start:start + b - a] for r in r_fields]
+            solved = self.apply_matmul(blocks)
+            return tuple(x[slab.lo - a:slab.hi - a] for x in solved)
         period = self.period
         shape = tuple(r_fields[0].shape)
         dim = len(shape)

@@ -8,6 +8,13 @@ as the reference does; a variable-coefficient stencil is the same sum with
 one coefficient plane per offset in place of the scalar.  Plain torch: the
 only hand-written kernel on these paths is the fused red-black sweep
 (ops/rb_sweep.py), which takes constant 2D stencils only.
+
+Every op that reads across rows or by position takes an optional `slab`
+(parallel/mesh.py): the field is then this rank's rows of a grid split
+over a device mesh.  The row halo comes from `halo_exchange` in place of
+the zero rows, colour and period masks start at the slab's global row, and
+sums are all-reduced before a norm is taken.  `slab=None` is the whole
+grid on one device.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from evostencils_torch.parallel.mesh import halo_exchange
 from evostencils_torch.stencils import constant, periodic
 
 
@@ -41,17 +49,26 @@ def pad_zeros(u: torch.Tensor, reach: Tuple[int, ...]) -> torch.Tensor:
     return F.pad(u, pads)
 
 
+def pad(u: torch.Tensor, reach: Tuple[int, ...], slab=None) -> torch.Tensor:
+    """The field with its halo: zeros on a whole grid; on a slab the rows
+    above and below from the ranks that own them (zeros at the grid's
+    boundary) and zero columns."""
+    if slab is None:
+        return pad_zeros(u, reach)
+    return pad_zeros(halo_exchange(u, slab, reach[0]), (0,) + tuple(reach[1:]))
+
+
 def shifted_view(padded: torch.Tensor, offset, reach, shape) -> torch.Tensor:
     index = tuple(slice(r + o, r + o + n) for r, o, n in zip(reach, offset, shape))
     return padded[index]
 
 
-def apply_constant_stencil(u: torch.Tensor, stencil: constant.Stencil) -> torch.Tensor:
+def apply_constant_stencil(u: torch.Tensor, stencil: constant.Stencil, slab=None) -> torch.Tensor:
     """y[x] = Σ_o v_o · u[x+o], u extended by zero outside the interior."""
     if stencil.number_of_entries == 0:
         return torch.zeros_like(u)
     reach = stencil.max_reach()
-    padded = pad_zeros(u, reach)
+    padded = pad(u, reach, slab)
     shape = u.shape
     out = None
     for offset, value in stencil.entries:
@@ -65,11 +82,12 @@ def variable_reach(offsets) -> Tuple[int, ...]:
     return tuple(max(abs(o[a]) for o in offsets) for a in range(len(offsets[0])))
 
 
-def apply_variable_stencil(u: torch.Tensor, offsets, planes) -> torch.Tensor:
+def apply_variable_stencil(u: torch.Tensor, offsets, planes, slab=None) -> torch.Tensor:
     """Variable-coefficient stencil: y[x] = Σ_o p_o[x] · u[x+o], one
-    coefficient plane per offset, summed in offset order."""
+    coefficient plane per offset (on a slab, the slab's rows of it), summed
+    in offset order."""
     reach = variable_reach(offsets)
-    padded = pad_zeros(u, reach)
+    padded = pad(u, reach, slab)
     shape = u.shape
     out = None
     for offset, plane in zip(offsets, planes):
@@ -78,10 +96,12 @@ def apply_variable_stencil(u: torch.Tensor, offsets, planes) -> torch.Tensor:
     return out
 
 
-def parity_masks(shape: Tuple[int, ...], period: Tuple[int, ...], dtype, device):
+def parity_masks(shape: Tuple[int, ...], period: Tuple[int, ...], dtype, device, row_offset=0):
     """All per-cell masks of a period lattice, as a dict index -> mask, on
-    local interior coordinates (as the reference)."""
-    grids = [np.arange(n) % p for n, p in zip(shape, period)]
+    interior coordinates (as the reference); `row_offset` is the global row
+    of a slab's first row."""
+    grids = [(np.arange(n) + (row_offset if axis == 0 else 0)) % p
+             for axis, (n, p) in enumerate(zip(shape, period))]
     mesh = np.meshgrid(*grids, indexing="ij")
     masks = {}
     for index in np.ndindex(*period):
@@ -93,33 +113,36 @@ def parity_masks(shape: Tuple[int, ...], period: Tuple[int, ...], dtype, device)
 
 
 @functools.lru_cache(maxsize=None)
-def red_black_masks(shape: Tuple[int, ...], dtype, device):
-    """(red, black) checkerboard masks: red = even local index sum.
-    Cached per (shape, dtype, device); callers never modify them."""
-    grids = [np.arange(n) for n in shape]
+def red_black_masks(shape: Tuple[int, ...], dtype, device, row_parity=0):
+    """(red, black) checkerboard masks: red = even global index sum; a slab
+    whose first row is odd (`row_parity` 1) starts on black.  Cached per
+    (shape, dtype, device, row_parity); callers never modify them."""
+    grids = [np.arange(n) + (row_parity if axis == 0 else 0) for axis, n in enumerate(shape)]
     s = sum(np.meshgrid(*grids, indexing="ij")) % 2
     return tuple(torch.from_numpy(s == c).to(device=device, dtype=dtype) for c in (0, 1))
 
 
-def apply_periodic_stencil(u: torch.Tensor, stencil: periodic.PeriodicStencil) -> torch.Tensor:
+def apply_periodic_stencil(u: torch.Tensor, stencil: periodic.PeriodicStencil,
+                           slab=None) -> torch.Tensor:
     """Apply a block-varying stencil by masked superposition of its cells."""
     if stencil.is_uniform():
-        return apply_constant_stencil(u, stencil.as_constant())
-    masks = parity_masks(tuple(u.shape), stencil.period, u.dtype, u.device)
+        return apply_constant_stencil(u, stencil.as_constant(), slab)
+    masks = parity_masks(tuple(u.shape), stencil.period, u.dtype, u.device,
+                         0 if slab is None else slab.lo)
     out = torch.zeros_like(u)
     for index in np.ndindex(*stencil.period):
         cell = stencil.cells[index]
         if cell is None or cell.number_of_entries == 0:
             continue
-        out = out + masks[index] * apply_constant_stencil(u, cell)
+        out = out + masks[index] * apply_constant_stencil(u, cell, slab)
     return out
 
 
-def apply_stencil(u: torch.Tensor, stencil) -> torch.Tensor:
+def apply_stencil(u: torch.Tensor, stencil, slab=None) -> torch.Tensor:
     if isinstance(stencil, constant.Stencil):
-        return apply_constant_stencil(u, stencil)
+        return apply_constant_stencil(u, stencil, slab)
     if isinstance(stencil, periodic.PeriodicStencil):
-        return apply_periodic_stencil(u, stencil)
+        return apply_periodic_stencil(u, stencil, slab)
     raise TypeError(f"Not a stencil: {type(stencil)}")
 
 
@@ -149,23 +172,29 @@ def numpy_apply_variable_stencil(u: np.ndarray, offsets, planes) -> np.ndarray:
     return out
 
 
-def l2_norm(fields: Sequence[torch.Tensor]) -> torch.Tensor:
+def _all_reduced(acc: torch.Tensor, slab) -> torch.Tensor:
+    return acc if slab is None else slab.layout.all_reduce_sum(acc)
+
+
+def l2_norm(fields: Sequence[torch.Tensor], slab=None) -> torch.Tensor:
     """Euclidean norm over all fields of a system state (0-dim real
-    tensor; Σ real(f·conj f) for complex fields)."""
+    tensor; Σ real(f·conj f) for complex fields); on slabs the sum of every
+    rank's sums."""
     acc = None
     for f in fields:
         s = torch.sum(torch.real(f * torch.conj(f))) if f.is_complex() else torch.sum(f * f)
         acc = s if acc is None else acc + s
-    return torch.sqrt(acc)
+    return torch.sqrt(_all_reduced(acc, slab))
 
 
-def dot(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Σ conj(x)·y over all fields: the conjugate is on the first argument."""
+def dot(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor], slab=None) -> torch.Tensor:
+    """Σ conj(x)·y over all fields: the conjugate is on the first argument;
+    on slabs the sum of every rank's sums."""
     acc = None
     for x, y in zip(a, b):
         s = torch.sum(torch.conj(x) * y) if x.is_complex() else torch.sum(x * y)
         acc = s if acc is None else acc + s
-    return acc
+    return _all_reduced(acc, slab)
 
 
 def tree_add(a, b):

@@ -33,6 +33,7 @@ import math
 import os
 import pickle
 import random
+import threading
 import time
 from typing import Callable, List, Optional
 
@@ -121,6 +122,7 @@ class Optimizer:
         individual_cache_size=100000,
         rng: Optional[random.Random] = None,
         dispatcher=None,
+        write_checkpoints: bool = True,
     ):
         self._dimension = dimension
         self._finest_grid = finest_grid
@@ -149,17 +151,29 @@ class Optimizer:
 
         self._individual_cache = {}
         self._individual_cache_size = individual_cache_size
+        # Statistics: a ThreadPoolDispatcher's threads count at once, and
+        # `+=` on an attribute reads, then writes; `_count` holds a lock.
+        self._statistics_lock = threading.Lock()
         self._individual_cache_hits = 0
         self._individual_cache_misses = 0
         self._failed_evaluations = 0
         self._total_number_of_evaluations = 0
         self._total_evaluation_time = 0.0
+        # False on every process but one of a run split across processes
+        # (scripts/torch_optimize.py --multihost, --mesh): they keep the
+        # same state, and one writes it.
+        self._write_checkpoints = write_checkpoints
         self._pset = None
         # parallel/dispatch.py: ThreadPoolDispatcher (threads of this
         # process) or MultiHostDispatcher (a torch.distributed group splits
         # the population, the reference's MPI ranks); None evaluates one
         # individual after another.
         self._dispatcher = dispatcher
+
+    def _count(self, name: str, amount=1) -> None:
+        """statistic `name` += amount, under the statistics lock."""
+        with self._statistics_lock:
+            setattr(self, name, getattr(self, name) + amount)
 
     @classmethod
     def for_problem(cls, problem, program_generator=None, **kwargs):
@@ -253,9 +267,9 @@ class Optimizer:
     def individual_in_cache(self, individual) -> bool:
         hit = str(individual) in self._individual_cache
         if hit:
-            self._individual_cache_hits += 1
+            self._count("_individual_cache_hits")
         else:
-            self._individual_cache_misses += 1
+            self._count("_individual_cache_misses")
         return hit
 
     def get_cached_fitness(self, individual):
@@ -317,11 +331,11 @@ class Optimizer:
     def estimate_single_objective(self, individual):
         if self.individual_in_cache(individual):
             return self.get_cached_fitness(individual)
-        self._total_number_of_evaluations += 1
+        self._count("_total_number_of_evaluations")
         try:
             expression, _ = self.compile_individual(individual)
         except (MemoryError, RuntimeError):
-            self._failed_evaluations += 1
+            self._count("_failed_evaluations")
             values = (self.infinity,)
             self.add_individual_to_cache(individual, values)
             return values
@@ -341,17 +355,17 @@ class Optimizer:
     def estimate_multiple_objectives(self, individual):
         if self.individual_in_cache(individual):
             return self.get_cached_fitness(individual)
-        self._total_number_of_evaluations += 1
+        self._count("_total_number_of_evaluations")
         try:
             expression, _ = self.compile_individual(individual)
         except (MemoryError, RuntimeError):
-            self._failed_evaluations += 1
+            self._count("_failed_evaluations")
             values = (self.infinity, self.infinity)
             self.add_individual_to_cache(individual, values)
             return values
         rho = self.convergence_evaluator.compute_spectral_radius(expression)
         if rho == 0.0 or math.isnan(rho) or math.isinf(rho):
-            self._failed_evaluations += 1
+            self._count("_failed_evaluations")
             values = (self.infinity, self.infinity)
         else:
             runtime = self.performance_evaluator.estimate_runtime(expression) * 1e3
@@ -368,7 +382,7 @@ class Optimizer:
         try:
             expression, _ = self.compile_individual(individual)
         except (MemoryError, RuntimeError):
-            self._failed_evaluations += 1
+            self._count("_failed_evaluations")
             fitness = (self.infinity,)
             self.add_individual_to_cache(individual, fitness)
             return fitness
@@ -379,8 +393,8 @@ class Optimizer:
             evaluation_samples=evaluation_samples,
             global_variable_values=pde_parameter_values or {},
         )
-        self._total_number_of_evaluations += 1
-        self._total_evaluation_time += time.time() - start
+        self._count("_total_number_of_evaluations")
+        self._count("_total_evaluation_time", time.time() - start)
         fitness = (t,)
         if not math.isfinite(t) or t >= self.infinity:
             # √(ρ·iters) fallback for non-converged individuals using the
@@ -408,7 +422,7 @@ class Optimizer:
         try:
             expression, _ = self.compile_individual(individual)
         except (MemoryError, RuntimeError):
-            self._failed_evaluations += 1
+            self._count("_failed_evaluations")
             fitness = (self.infinity, self.infinity)
             self.add_individual_to_cache(individual, fitness)
             return fitness
@@ -419,8 +433,8 @@ class Optimizer:
             evaluation_samples=evaluation_samples,
             global_variable_values=pde_parameter_values or {},
         )
-        self._total_number_of_evaluations += 1
-        self._total_evaluation_time += time.time() - start
+        self._count("_total_number_of_evaluations")
+        self._count("_total_evaluation_time", time.time() - start)
         if not math.isfinite(t) or t >= self.infinity:
             fitness = (rho, self.infinity)
         else:
@@ -497,7 +511,7 @@ class Optimizer:
             )
             for (ind, _), (t, rho, iterations) in zip(members, measurements):
                 fitness = self._measurement_to_fitness(t, rho, iterations)
-                self._total_number_of_evaluations += 1
+                self._count("_total_number_of_evaluations")
                 self.add_individual_to_cache(ind, fitness)
                 ind.fitness_values = tuple(fitness)
 
@@ -738,6 +752,8 @@ class Optimizer:
 
     def _write_checkpoint(self, min_level, max_level, gen, solver_program,
                           population, logbooks):
+        if not self._write_checkpoints:
+            return
         checkpoint = CheckPoint(
             min_level,
             max_level,

@@ -1,2 +1,3 @@
-"""Population dispatch: evaluate a generation's individuals in threads of
-one process or split across torch.distributed processes."""
+"""Population dispatch (dispatch.py: threads of one process, or
+torch.distributed processes splitting a generation) and grids split by rows
+over a (dp, sp) device mesh (mesh.py)."""

@@ -50,8 +50,20 @@ fitnesses, and rank 0 writes the artifacts):
   torchrun --nproc_per_node 2 scripts/torch_optimize.py --multihost \
       --seed 3 --mu 8 --lambda 8 --generations 2
 
-Without CUDA it stops unless --cpu is given.  Not ported: --mesh (the
-reference's spatial sharding over a device mesh).
+--mesh DP,SP evaluates every individual on a (dp, sp) device mesh of the
+DP·SP processes torchrun starts (evostencils_torch/parallel/mesh.py): the
+fine grids split by rows over sp, the same evaluation on every dp row, NCCL
+with one card per process (gloo with --cpu); every process breeds the same
+populations from --seed and the largest measured time of all ranks, and
+rank 0 writes the artifacts and checkpoints:
+  torchrun --nproc_per_node 4 scripts/torch_optimize.py --mesh 2,2 \
+      --seed 3 --mu 8 --lambda 8 --generations 1
+It refuses --multihost (a population split over processes, each on a mesh
+of its own, is not ported) and --tune (the tuner differentiates a cycle on
+one device).  --replicate-below sets the replication rule's rows (64, the
+reference's default); --collective-timeout bounds every collective.
+
+Without CUDA it stops unless --cpu is given.
 """
 
 import argparse
@@ -81,6 +93,7 @@ class Run(NamedTuple):
     generator: TorchProgramGenerator
     best: str
     halls_of_fame: list
+    logbooks: list
     evolution_s: float
     # (ρ before, ρ after, tuned ω) of --tune, else None.
     tuning: Optional[tuple]
@@ -125,6 +138,16 @@ def parse_arguments(argv=None):
                         help="split each generation's evaluations across the "
                              "processes torchrun starts (gloo process group "
                              "from its environment); needs --seed")
+    parser.add_argument("--mesh", default=None, metavar="DP,SP",
+                        help="evaluate on a (dp, sp) device mesh of the DP·SP "
+                             "processes torchrun starts, fine grids split by "
+                             "rows over sp (NCCL; gloo with --cpu); needs --seed")
+    parser.add_argument("--replicate-below", type=int, default=64,
+                        help="with --mesh, a level whose slabs would hold fewer "
+                             "rows is held whole on every rank")
+    parser.add_argument("--collective-timeout", type=float, default=300.0,
+                        help="seconds any collective of --mesh may take before "
+                             "the run fails")
     parser.add_argument("--seed-file", action="append", default=[],
                         help="file whose first non-comment line is a grammar "
                              "string seeded into the initial population "
@@ -164,6 +187,21 @@ def parse_arguments(argv=None):
         parser.error("no CUDA device: run on a GPU, or pass --cpu")
     if args.multihost and args.seed is None:
         parser.error("--multihost needs --seed: every process must breed the same populations")
+    if args.mesh:
+        if args.multihost:
+            parser.error("--mesh with --multihost is not ported: a population split over "
+                         "processes that each evaluate on a mesh of their own")
+        if args.seed is None:
+            parser.error("--mesh needs --seed: every process must breed the same populations")
+        if args.tune:
+            parser.error("--tune with --mesh is not ported: the tuner differentiates a "
+                         "cycle on one device")
+        try:
+            args.mesh = tuple(int(x) for x in args.mesh.split(","))
+        except ValueError:
+            parser.error(f"--mesh takes DP,SP, not {args.mesh!r}")
+        if len(args.mesh) != 2 or min(args.mesh) < 1:
+            parser.error(f"--mesh takes DP,SP, not {args.mesh!r}")
     return args
 
 
@@ -288,18 +326,35 @@ def _multihost_dispatcher(cpu: bool):
     return MultiHostDispatcher()
 
 
+def _device_mesh(args):
+    """The (dp, sp) DeviceMesh of --mesh over a process group from
+    torchrun's environment: NCCL, one card per process; gloo with --cpu."""
+    from evostencils_torch.parallel.mesh import build_mesh, init_from_env
+
+    dp, sp = args.mesh
+    init_from_env("gloo" if args.cpu else "nccl", args.collective_timeout, cpu=args.cpu)
+    mesh = build_mesh(dp * sp, dp=dp)
+    print(f"Evaluating on mesh {mesh}", flush=True)
+    return mesh
+
+
 def run(argv=None) -> Run:
     """Parse `argv`, evolve, write the artifacts and, with --tune, tune."""
+    import torch.distributed as dist
+
     args = parse_arguments(argv)
     problem = _build_problem(args)
     output_dir = args.output or f"results_{problem.name}_torch"
-    os.makedirs(output_dir, exist_ok=True)
     dispatcher = _multihost_dispatcher(args.cpu) if args.multihost else None
+    mesh = _device_mesh(args) if args.mesh else None
     # Every process breeds the same populations; one writes them.
-    rank = dispatcher.process_index if dispatcher is not None else 0
+    rank = dist.get_rank() if dispatcher is not None or mesh is not None else 0
+    if rank == 0:
+        os.makedirs(output_dir, exist_ok=True)
 
     generator = TorchProgramGenerator(
-        problem, device="cpu" if args.cpu else "cuda", ladder_rungs=args.ladder_rungs)
+        problem, device="cpu" if args.cpu else "cuda", ladder_rungs=args.ladder_rungs,
+        mesh=mesh, replicate_below=args.replicate_below)
     convergence_evaluator = None
     performance_evaluator = None
     if args.model_based:
@@ -314,10 +369,10 @@ def run(argv=None) -> Run:
         program_generator=generator,
         convergence_evaluator=convergence_evaluator,
         performance_evaluator=performance_evaluator,
-        checkpoint_directory_path=os.path.join(
-            output_dir, "checkpoints" if rank == 0 else f"checkpoints_rank{rank}"),
+        checkpoint_directory_path=os.path.join(output_dir, "checkpoints"),
         rng=random.Random(args.seed),
         dispatcher=dispatcher,
+        write_checkpoints=rank == 0,
     )
     method = {
         "nsga2": optimizer.NSGAII,
@@ -361,11 +416,15 @@ def run(argv=None) -> Run:
         if args.tune and not args.model_based:
             tuning = _tune(output_dir, optimizer, generator, best)
         print(f"Results written to {output_dir}/")
-    return Run(optimizer, generator, best, hofs, evolution_s, tuning)
+    return Run(optimizer, generator, best, hofs, logbooks, evolution_s, tuning)
 
 
 def main(argv=None) -> int:
+    import torch.distributed as dist
+
     run(argv)
+    if dist.is_initialized():
+        dist.destroy_process_group()
     return 0
 
 

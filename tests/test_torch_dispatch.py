@@ -301,3 +301,47 @@ def test_launch_counts_from_many_threads_are_not_lost(monkeypatch):
         t.join(timeout=60)
     assert not any(t.is_alive() for t in threads)
     assert dict(rb_sweep.launches) == {(63, 63): 800, (127, 127): 800}
+
+
+def test_optimizer_counters_are_exact_under_a_thread_pool():
+    """The optimizer's statistics under ThreadPoolDispatcher(8): a few
+    hundred distinct stub evaluations three times over, a quarter of them
+    already cached,
+    with the interpreter's switch interval cut to 1 µs so that threads
+    switch inside every unguarded `+=`.  Hits, misses, evaluations and
+    failures equal the serial run's exactly."""
+    problem = poisson_2d(3, 5, dtype=torch.float64)
+    side = Side(PORT, problem)
+    rng = random.Random(8)
+    trees = {}
+    while len(trees) < 320:
+        tree = PORT.gp.gen_grow(side.pset, 2, 8, rng=rng)
+        trees.setdefault(str(tree), tree)
+    trees = list(trees.values())
+    def statistics(dispatcher):
+        optimizer = Optimizer.for_problem(
+            problem, program_generator=StubGenerator(problem, canonical_string),
+            rng=random.Random(0), dispatcher=dispatcher)
+        optimizer._pset = side.pset
+        for tree in trees[::4]:
+            optimizer.evaluate_single_objective(tree, evaluation_samples=1)
+        # Three passes, one after another (within a pass every tree is
+        # another individual, so no two threads race to cache one): the
+        # later passes are cache hits, counted as fast as threads can.
+        for _ in range(3):
+            (dispatcher or SerialDispatcher()).map(
+                lambda tree: (optimizer.evaluate_single_objective(tree, evaluation_samples=1),
+                              optimizer.evaluate_multiple_objectives(tree, evaluation_samples=1)),
+                trees)
+        return (optimizer._individual_cache_hits, optimizer._individual_cache_misses,
+                optimizer._total_number_of_evaluations, optimizer._failed_evaluations)
+
+    serial = statistics(None)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threaded = statistics(ThreadPoolDispatcher(8))
+    finally:
+        sys.setswitchinterval(interval)
+    assert threaded == serial
+    assert serial[0] >= len(trees) // 4 and serial[2] >= len(trees)

@@ -9,12 +9,14 @@ scripts/torch_optimize.py, scripts/torch_evaluate_helmholtz_ladder.py,
 scripts/torch_headline_1024.py, scripts/torch_calibrate_roofline.py,
 scripts/torch_optimize_intergrid.py, the four champion scripts
 (torch_evaluate_reference_solver, torch_evaluate_evolved_solver,
-torch_champion_stats, torch_tune_champions) and chip_smoke (without running
-its main), builds a grammar and compiles a tree through the port (which
+torch_champion_stats, torch_tune_champions), the mesh module
+(parallel/mesh.py) and scripts/torch_mesh_dryrun.py, and chip_smoke
+(without running its main), builds a grammar and compiles a tree through the port (which
 runs the lazy imports inside the IR), builds, compiles and evaluates a
 Helmholtz preconditioner (complex128, the outer BiCGStab solve), evaluates
 a 3D, a variable-coefficient, a linear elasticity and a FAS cycle, loads
-the four problem specs and runs the parsed FAS operator, runs the
+the four problem specs and runs the parsed FAS operator, evaluates a cycle
+on a one-rank gloo mesh, runs the
 evolution entry point on the CPU for one generation with --tune and the
 tutorial docs/torch_tutorial.py on the CPU, and must end with none of them
 loaded.
@@ -59,6 +61,7 @@ MODULES = [
     "evostencils_torch.problems.parser",
     "evostencils_torch.parallel",
     "evostencils_torch.parallel.dispatch",
+    "evostencils_torch.parallel.mesh",
     "evostencils_torch.ops.stencil_ops",
     "evostencils_torch.ops.intergrid",
     "evostencils_torch.ops.coarse_solve",
@@ -92,6 +95,7 @@ MODULES = [
     "scripts.torch_evaluate_evolved_solver",
     "scripts.torch_champion_stats",
     "scripts.torch_tune_champions",
+    "scripts.torch_mesh_dryrun",
     "chip_smoke",
 ]
 
@@ -177,6 +181,22 @@ for name in sorted(os.listdir(specs)):
             *parsed.interior_coordinates(3)).shape == (7, 7), name
 a = parsed.operator_factories["A"][0](3, parsed.parameters)
 a.derivative_diag(torch.zeros(3)), a.nonlinear_term(torch.zeros(3))
+import datetime, socket
+import torch.distributed as dist
+from evostencils_torch.parallel.mesh import build_mesh
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{{port}}", rank=0, world_size=1,
+                        timeout=datetime.timedelta(seconds=60))
+_, terminals = generate_primitive_set(
+    problem.approximation(), problem.rhs(), problem.dimension, problem.coarsening_factors,
+    problem.max_level, problem.equations, problem.operators, problem.fields, depth=2)
+t, rho, iterations = TorchProgramGenerator(
+    problem, dtype=torch.float64, device="cpu", mesh=build_mesh(1)).generate_and_evaluate(
+        reference_cycles.generate_v_cycle(terminals, problem.rhs()), evaluation_samples=1)
+assert t < 1e50 and 0 < rho < 1.0, (t, rho, iterations)
+dist.destroy_process_group()
 import runpy
 os.environ.update(TUTORIAL_DEVICE="cpu", TUTORIAL_GENERATIONS="1", TUTORIAL_MU="2")
 runpy.run_path(os.path.join({ROOT!r}, "docs", "torch_tutorial.py"), run_name="__main__")

@@ -74,11 +74,14 @@ class Side:
         n_fields = len(self.problem.fields)
         return lambda A: sm.generate_collective_block_jacobi(A, (kind,) * n_fields)
 
-    def cycle(self, pre, post, omega, kind="collective", red_black=True, levels=None):
+    def cycle(self, pre, post, omega, kind="collective", red_black=True, levels=None,
+              coarse_solver=None):
         """Textbook V(pre, post) over `levels` levels (all by default), the
         smoother `kind` ("collective", "decoupled", "newton", "picard" or a
-        block shape), an exact coarsest solve; FAS problems get the
-        τ-corrected coarse problem and the solution-restriction correction."""
+        block shape), an exact coarsest solve, or the expression
+        `coarse_solver(coarse operator)` (a Krylov method); FAS problems get
+        the τ-corrected coarse problem and the solution-restriction
+        correction."""
         b, part = self.package.base, self.package.part
         partitioning = part.RedBlack if red_black else part.Single
         factory = self.smoother_factory(kind)
@@ -108,7 +111,10 @@ class Side:
                 if fas:
                     raise ValueError("FAS cycles are two-grid here")
             else:
-                coarse = b.Multiplication(b.CoarseGridSolver("CGS", t.coarse_operator), f_c)
+                solver = b.CoarseGridSolver(
+                    "CGS", t.coarse_operator,
+                    None if coarse_solver is None else coarse_solver(t.coarse_operator))
+                coarse = b.Multiplication(solver, f_c)
                 if fas:
                     coarse = b.Subtraction(coarse, restricted_u)
             u = b.Cycle(u, f, b.Multiplication(t.prolongation, coarse), relaxation_factor=1.0)

@@ -34,7 +34,8 @@ JSON line:
    iterations within ±1).
 5. evolve: the evolution entry point, scripts/torch_optimize.py, in this
    process on the card: 2D Poisson levels 5-9 (511²) in f32, NSGA-II,
-   μ = λ = 8, initial factor 4, 2 generations, 3 evaluation samples, a
+   μ = λ = 8, initial factor 2 and one generation (cut from 4 and 2 to
+   fit the time limit), 3 evaluation samples, a
    fixed seed and --tune, its artifacts under chiprun_out/evolve/.  It
    reports the evaluations (and how many went through same-structure
    groups), the wall time and evaluations per hour, the VM hit rate, the
@@ -61,17 +62,18 @@ JSON line:
    takes minutes each; scripts/torch_evaluate_helmholtz_ladder.py runs it).
    The k = 80 rung converges below the cut cap, so its count is the
    protocol's.  (b) The stored k = 320 champion
-   (artifacts/helmholtz_k320_r5/individual_0.txt) at the full cap through
-   the optimizer's grammar-string entry: its count is recorded, not judged,
-   because thousands of BiCGStab iterations follow the rounding (the
-   reference measured 6,515 on its CPU, the port's CPU test 7,545); it must
-   contract (ρ < 1) without a NaN.  The k = 80 rung must converge and is
+   (artifacts/helmholtz_k320_r5/individual_0.txt), its cap cut from
+   10,000 to 2,000, through the optimizer's grammar-string entry: its
+   count is recorded, not judged, because thousands of BiCGStab
+   iterations follow the rounding (the reference measured 6,515 on its
+   CPU, the port's CPU test 7,545; the card ran into the full cap); it
+   must contract (ρ < 1) without a NaN.  The k = 80 rung must converge and is
    repeated on the CPU: the same verdict, the count within 20 %.  Per rung
    it prints iterations, ρ, time to target, ms per outer iteration, the
    probe's verdict and the stages.  A complex state never reaches the
    float32 kernel: zero launches.
 8. helmholtz_c64: the same V(2,1) at k = 80 in complex64, the staged path
-   that restarts from the complex128 host residual, its cap cut to 1,000.
+   that restarts from the complex128 host residual, its cap cut to 500.
    How far it gets, in how many stages and iterations, is recorded, not
    judged (the full cap: scripts/torch_evaluate_helmholtz_ladder.py --dtype
    complex64).
@@ -82,8 +84,9 @@ JSON line:
    ρ must be finite and within 0.05 of the same cycle's with the dense
    solve, and the kernel must have launched at 511².
 10. helmholtz_evolve: scripts/torch_optimize.py on Helmholtz (k0 = 20,
-   levels 3-5, complex128, SOGP, μ = λ = 4, one generation, one ladder rung,
-   outer cap 60, one evaluation sample), artifacts under
+   levels 3-5, complex128, SOGP, μ = λ = 4, initial factor 2, one
+   generation, one ladder rung, outer cap 60, one evaluation sample),
+   artifacts under
    chiprun_out/helmholtz_evolve/.  The best
    individual must have a finite fitness and re-evaluate to the iteration
    count it had during the run.
@@ -107,7 +110,8 @@ printing its wall seconds, its ms per iteration, the kernel's launches
    CPU too (2 % / ±1); once more in float32, recorded and not judged.
 14. fas: the FAS champion and both textbook V(2,2)s (Newton and Picard) at
    levels 5-9 (511²) in float32 through the optimizer's grammar-string
-   entry; the champion must beat both and agree with its CPU run (2 % /
+   entry (three timing samples for the champion, one for each textbook);
+   the champion must beat both and agree with its CPU run (2 % /
    ±1); 20 textbook Newton cycles through CycleLowering.lower on the card
    must reach the manufactured solution within 5e-3 in max norm.
 15. helmholtz_robin: the textbook V(2,1) ω = 0.6 preconditioning BiCGStab
@@ -118,8 +122,9 @@ printing its wall seconds, its ms per iteration, the kernel's launches
    = 4, initial factor 2, one generation, one sample, seed 3), artifacts
    under chiprun_out/fas_evolve/; the best has a finite fitness and
    re-evaluates to its recorded count ±1.
-17. profile_families: one evaluation of the tuned variable-coefficient
-   champion (511²) and one of the tuned 3D champion (127³, float32) under
+17. profile_families: one evaluation (one timing sample) of the tuned
+   variable-coefficient champion (511²) and one of the tuned 3D champion
+   (127³, float32) under
    torch.profiler, and one cycle of each alone, and of the FAS champion
    (511²): wall and device busy time, idle share, device operations per
    cycle, the top operations by device time; the tables go to
@@ -151,18 +156,19 @@ Problem files, the champion scripts and population dispatch:
 20. problem_file: artifacts/problem_specs/2D_FD_Poisson_fromL2.exa2 through
    load_problem_file (levels 5-9 from its .knowledge file, 511², float32);
    the exafile champion of RESULTS.md R5.5 untuned and with its stored ω,
-   3 samples each, on the parsed problem and on poisson_2d(5, 9): ρ and
+   one sample each, on the parsed problem and on poisson_2d(5, 9): ρ and
    iterations equal to the digit, the kernel's launches by grid size equal
    and > 0 at every level where the champion smooths red-black (127²-511²;
    at 63² it smooths with single-colour and block Jacobi), ρ < 1, no ∞; the
    TPU's R5.5 record printed beside.
-   Then scripts/torch_optimize.py --problem-file (NSGA-II, μ = λ = 4, one
-   generation, one sample, seed 20260819; cut from R5.5's 16 × 20
+   Then scripts/torch_optimize.py --problem-file (NSGA-II, μ = λ = 4, initial
+   factor 2, one generation, one sample, seed 20260819; cut from R5.5's 16 × 20
    generations), artifacts under chiprun_out/problem_file/: a hall of fame
    holds 0 < ρ < 1.
 21. problem_file_fas: the FAS champion on the FAS template
-   (FAS_2D_Basic_template.exa4 at levels 5-9) and on fas_2d(5, 9): both
-   converge, ρ within 5 %, iterations ±1, no kernel launch.
+   (FAS_2D_Basic_template.exa4 at levels 5-9) and on fas_2d(5, 9), one
+   timing sample each: both converge, ρ within 5 %, iterations ±1, no
+   kernel launch.
 22. scripts: torch_evaluate_reference_solver (V(2,1), 3 samples),
    torch_evaluate_evolved_solver (the exafile champion, 3 samples),
    torch_champion_stats (artifacts/paper_protocol/individual_0_tuned.txt,
@@ -171,7 +177,7 @@ Problem files, the champion scripts and population dispatch:
    poisson2d_stats_n20_f32.json; torch_tune_champions (individual_0.txt,
    10 iterations, 1 sample, into chiprun_out/tuned/): the file parses back
    and its ω apply.  Levels 5-9, float32, each script launching the kernel.
-23. dispatch: the 16 bench trees at 511² through the optimizer's evaluation
+23. dispatch: the first 8 of the 16 bench trees at 511² through the optimizer's evaluation
    path, one evaluation sample each, with SerialDispatcher and
    ThreadPoolDispatcher(2): ρ and iterations equal per tree, launches by
    grid size equal, evaluations per hour of both; then MultiHostDispatcher in two processes on this card (gloo over
@@ -191,7 +197,34 @@ The device mesh (parallel/mesh.py):
    unsharded default route; 0 kernel launches on every rank (the mesh
    path runs the plain ops by policy, as the reference's
    lowering.py:73-81).  Each run's backend, route, slab rows, transfer
-   counts, ms to target and wall time are printed.
+   counts, ms to target and wall time are printed.  Then, on the same
+   routes (2 gloo ranks and 1 NCCL rank on one card):
+   (a) FAS, 511² float32 (levels 5-9), `replicate_below` 64: the stored
+   champion and the textbook Newton V(2,2) through
+   `scripts/torch_mesh_dryrun.py --problem fas`, the first run's rank 0
+   evaluating both unsharded: the champion's ρ within 2 % and its count
+   within ±1 of the unsharded run; the textbook's ρ comes from the stall
+   rule and is printed, not judged.
+   (b) Helmholtz, complex128, levels 3-7 (127²), k = 80, the textbook
+   V(2,1) ω 0.6, the outer cap cut to 600 as the helmholtz phase's,
+   `replicate_below` 16 (127² and 63² split): it converges, with the
+   probe verdict and stages of the helmholtz phase's unsharded k = 80 rung
+   and the count within 10 % of it; ms per outer iteration of each route.
+   (c) scripts/torch_optimize.py --mesh 2,2 --multihost --seed 3 on 4 gloo
+   ranks of this card (the rank bootstrap starts the gloo group): 2D
+   Poisson at 511² (levels 5-9, `replicate_below` 64: 511², 255² and 127²
+   split), NSGA-II, μ = λ = 4, initial factor 1, 1 generation, one sample:
+   four identical logbooks and halls of fame, each dp row evaluated its
+   half (the counts are printed), times reduced within a row, rank 0 alone
+   wrote; three gathered individuals re-evaluated here unsharded with the
+   plain ops: ρ within 1e-4 relative, iterations ±1.
+   (d) scripts/torch_optimize.py --mesh 1,2 --seed 3 --tune on 2 gloo
+   ranks, levels 3-6 (63², `replicate_below` 16: 63² split), μ = λ = 2,
+   initial factor 1: both ranks publish the same ω, and rank 0 alone writes
+   the tuned file when ρ did not grow, else the rejected one.  (c) and (d)
+   start after PR 8's runs and run beside (a) and (b), whose times they
+   slow.
+   Every run launches the sweep kernel 0 times (`mesh_launches`).
 
 Before the last line it prints the kernels as one JSON object and the card's
 `nvidia-smi` name and power limit; the last line is
@@ -245,7 +278,10 @@ HELMHOLTZ_CHAMPION = os.path.join(ROOT, "artifacts", "helmholtz_k320_r5", "indiv
 # milliseconds of host time.  The ladder's cap stays above 4 × the probe's
 # 128 iterations, so the probe runs, and above the k = 80 rung's count.
 LADDER_CAP = 600
-C64_CAP = 1000
+C64_CAP = 500
+# The k = 320 champion's cap, cut to fit the mesh runs: it runs into any
+# cap on the card, and its count is recorded, not judged.
+K320_CAP = 2000
 KERNEL_SOURCE = "evostencils_torch/csrc/rb_sweep.cu"
 TOLERANCE = 5e-5  # as tests/test_pallas.py holds the Pallas kernels
 OMEGA = 1.15
@@ -505,8 +541,9 @@ def phase_main_path(failures: list) -> tuple:
 
 EVOLVE_ARGS = [
     "--problem", "poisson2d", "--method", "nsga2", "--mu", "8", "--lambda", "8",
-    "--generations", "2", "--min-level", "5", "--max-level", "9", "--dtype", "float32",
-    "--evaluation-samples", "3", "--seed", "3", "--tune",
+    "--generations", "1", "--min-level", "5", "--max-level", "9", "--dtype", "float32",
+    "--population-initialization-factor", "2", "--evaluation-samples", "3", "--seed", "3",
+    "--tune",
     "--output", os.path.join(ROOT, "chiprun_out", "evolve"),
 ]
 
@@ -678,12 +715,43 @@ def textbook_v21(problem):
         terminals, problem.rhs(), pre_smoothing=2, post_smoothing=1, omega=0.6)
 
 
-def phase_helmholtz(failures: list) -> None:
+# The k = 80 rung on the CPU, in a process of its own while the card runs
+# the ladder (two threads: the card's host loop keeps its core); its record
+# is the last line.
+_CPU_K80 = """
+import json
+import torch
+torch.set_num_threads(2)
+import chip_smoke as cs
+problem = cs.helmholtz_2d(min_level=3, max_level=7, k=80.0)
+problem.outer_solver["max_iterations"] = cs.LADDER_CAP
+generator = cs.TorchProgramGenerator(problem, dtype=torch.complex128, device="cpu")
+rung = cs.torch_evaluate_helmholtz_ladder.evaluate_ladder(
+    generator, "textbook V(2,1) ω=0.6 on the CPU", cs.textbook_v21(problem), 80.0, 1)[0]
+print(json.dumps(cs.rung_record(rung), default=float), flush=True)
+"""
+
+
+def phase_helmholtz(failures: list) -> dict:
     """The published protocol in complex128 on the card: the textbook
     V(2,1) across the k-ladder, the ladder call, the stored k = 320
-    champion, and the k = 80 rung again on the CPU."""
+    champion, and the k = 80 rung again on the CPU meanwhile.  Returns the
+    k = 80 rung's record."""
     start = time.perf_counter()
     rb_sweep.launches.clear()
+    cpu_proc = subprocess.Popen([sys.executable, "-c", _CPU_K80], stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, cwd=ROOT,
+                                env=dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2"))
+    try:
+        return _helmholtz_on_card(failures, start, cpu_proc)
+    finally:
+        if cpu_proc.poll() is None:
+            cpu_proc.kill()
+            cpu_proc.communicate()
+
+
+def _helmholtz_on_card(failures: list, start: float, cpu_proc) -> dict:
+    """phase_helmholtz's runs on the card; `cpu_proc` prints the CPU rung."""
     problem = helmholtz_2d(min_level=3, max_level=7, k=80.0)
     problem.outer_solver["max_iterations"] = LADDER_CAP
     cycle = textbook_v21(problem)
@@ -706,6 +774,7 @@ def phase_helmholtz(failures: list) -> None:
     with open(HELMHOLTZ_CHAMPION) as f:
         champion = "".join(line for line in f if not line.startswith("#")).strip()
     problem_320 = helmholtz_2d(min_level=3, max_level=7, k=320.0, dtype=torch.complex128)
+    problem_320.outer_solver["max_iterations"] = K320_CAP
     generator_320 = TorchProgramGenerator(problem_320, dtype=torch.complex128, device="cuda")
     optimizer = Optimizer.for_problem(
         problem_320, program_generator=generator_320, rng=random.Random(0))
@@ -716,9 +785,12 @@ def phase_helmholtz(failures: list) -> None:
     torch.cuda.synchronize()
     champion_s = time.perf_counter() - t0
 
-    cpu = TorchProgramGenerator(problem, dtype=torch.complex128, device="cpu")
-    cpu_rung = torch_evaluate_helmholtz_ladder.evaluate_ladder(
-        cpu, "textbook V(2,1) ω=0.6 on the CPU", cycle, 80.0, 1)[0]
+    out, err = cpu_proc.communicate()
+    lines = [line for line in out.splitlines() if line.startswith("{")]
+    cpu_rung = json.loads(lines[-1]) if cpu_proc.returncode == 0 and lines else None
+    if cpu_rung is None:
+        failures.append(f"helmholtz: the CPU rung exited {cpu_proc.returncode}: "
+                        f"{(out + err)[-1500:]}")
 
     emit({
         "phase": "helmholtz", "dtype": "complex128", "levels": [3, 7], "target": 1e-7,
@@ -738,7 +810,7 @@ def phase_helmholtz(failures: list) -> None:
             "reference_iterations": 6515, "wall_s": champion_s,
             **generator_320.last_outer_solve,
         },
-        "cpu_k80": rung_record(cpu_rung),
+        "cpu_k80": cpu_rung,
         "rb_sweep_launches": rb_sweep.launches.total(),
         "phase_s": time.perf_counter() - start,
     })
@@ -756,11 +828,12 @@ def phase_helmholtz(failures: list) -> None:
     if not (0.0 < champ_rho < 1.0 and champ_iterations >= 128):
         failures.append(f"helmholtz: the k = 320 champion does not contract "
                         f"(rho {champ_rho} in {champ_iterations} outer iterations)")
-    if cpu_rung.converged != rungs[0].converged or (
-            abs(cpu_rung.iterations - rungs[0].iterations) > 0.2 * rungs[0].iterations):
+    if cpu_rung is not None and (cpu_rung["converged"] != rungs[0].converged or (
+            abs(cpu_rung["iterations"] - rungs[0].iterations) > 0.2 * rungs[0].iterations)):
         failures.append(f"helmholtz: k = 80 on the CPU {cpu_rung} vs on the card {rungs[0]}")
     if rb_sweep.launches.total():
         failures.append("helmholtz: the float32 kernel launched on a complex state")
+    return rung_record(rungs[0])
 
 
 def phase_helmholtz_c64(failures: list) -> None:
@@ -840,7 +913,7 @@ HELMHOLTZ_EVOLVE_ARGS = [
     "--problem", "helmholtz", "--helmholtz-k0", "20", "--min-level", "3", "--max-level", "5",
     "--dtype", "complex128", "--method", "sogp", "--mu", "4", "--lambda", "4",
     "--generations", "1", "--ladder-rungs", "1", "--outer-cap", "60",
-    "--evaluation-samples", "1", "--seed", "3",
+    "--population-initialization-factor", "2", "--evaluation-samples", "1", "--seed", "3",
     "--output", os.path.join(ROOT, "chiprun_out", "helmholtz_evolve"),
 ]
 
@@ -1082,16 +1155,17 @@ def phase_elasticity(failures: list) -> int:
     return launched
 
 
-def grammar_entry_evaluation(problem, device, path: str) -> dict:
+def grammar_entry_evaluation(problem, device, path: str, samples: int = 3) -> dict:
     """A stored grammar string through the optimizer's grammar-string entry,
-    which builds the primitive set (the FAS one for a FAS problem)."""
+    which builds the primitive set (the FAS one for a FAS problem), with
+    `samples` timing samples on the card (one on the CPU)."""
     with open(path) as f:
         tree_string = "".join(line for line in f if not line.startswith("#")).strip()
     generator = TorchProgramGenerator(problem, dtype=problem.dtype, device=device)
     optimizer = Optimizer.for_problem(problem, program_generator=generator, rng=random.Random(0))
     t0 = time.perf_counter()
     fitness = optimizer.generate_and_evaluate_program_from_grammar_representation(
-        tree_string, 8, evaluation_samples=1 if device == "cpu" else 3)
+        tree_string, 8, evaluation_samples=1 if device == "cpu" else samples)
     if device != "cpu":
         torch.cuda.synchronize()
     return fitness_record(fitness, t0)
@@ -1104,7 +1178,9 @@ def phase_fas(failures: list) -> int:
     results = {"champion": grammar_entry_evaluation(problem, DEVICE, FAS_CHAMPION)}
     results["champion"]["reference_n20"] = reference_record("fas", FAS_CHAMPION)
     for name, path in FAS_TEXTBOOKS.items():
-        results[f"textbook_{name}"] = grammar_entry_evaluation(problem, DEVICE, path)
+        # One timing sample: a textbook's ρ is the stall rule's, its time
+        # is printed, and three samples took ~25 s each.
+        results[f"textbook_{name}"] = grammar_entry_evaluation(problem, DEVICE, path, samples=1)
         results[f"textbook_{name}"]["reference_n20"] = reference_record("fas", path)
 
     # Twenty textbook Newton cycles on the card from the zero guess.
@@ -1231,7 +1307,7 @@ def phase_profile_families(failures: list) -> None:
         record = {"phase": "profile_families", "family": name}
         if evaluate:
             evaluation = profile_run(
-                lambda: generator.generate_and_evaluate(expr, evaluation_samples=3),
+                lambda: generator.generate_and_evaluate(expr, evaluation_samples=1),
                 f"profile_{name}_eval.txt", host_ops=False)
             record["evaluation"] = {k: v for k, v in evaluation.items() if k != "events"}
         step = generator.lowering.lower(expr)
@@ -1435,12 +1511,15 @@ R55_TPU_RECORD = {"untuned": {"rho": 0.1703, "iterations": 16},
                   "tuned": {"rho": 0.0802, "iterations": 11}}
 PROBLEM_FILE_ARGS = [
     "--problem-file", POISSON_SPEC, "--method", "nsga2", "--mu", "4", "--lambda", "4",
-    "--generations", "1", "--evaluation-samples", "1", "--seed", "20260819",
+    "--generations", "1", "--population-initialization-factor", "2",
+    "--evaluation-samples", "1", "--seed", "20260819",
     "--output", os.path.join(ROOT, "chiprun_out", "problem_file"),
 ]
 PAPER_CHAMPION_0 = os.path.join(ARTIFACTS, "paper_protocol", "individual_0.txt")
 PAPER_STATS_RECORD = os.path.join(ARTIFACTS, "paper_protocol", "poisson2d_stats_n20_f32.json")
 DISPATCH_OMEGAS = (0.7, 0.8, 0.9, 1.0, 1.1, 1.2)
+# The first 8 of the bench's 16 trees (cut to fit this script's time limit).
+DISPATCH_TREES = 8
 
 
 def red_black_shapes(path: str, finest_level: int) -> list:
@@ -1483,7 +1562,7 @@ def phase_problem_file(failures: list) -> dict:
             expr = artifact_expression(problem, path, label == "tuned", failures)
             generator = TorchProgramGenerator(problem, device=DEVICE)
             rb_sweep.launches.clear()
-            entry[name] = timed_evaluation(generator, expr)
+            entry[name] = timed_evaluation(generator, expr, samples=1)
             launched = dict(rb_sweep.launches)
             add_launches(phase_launches, launched)
             entry[name]["rb_sweep_launches_by_shape"] = launches_record(launched)
@@ -1541,9 +1620,9 @@ def phase_problem_file_fas(failures: list) -> int:
     rb_sweep.launches.clear()
     parsed = load_problem_file(FAS_SPEC).with_levels(5, 9)
     results = {
-        "parsed": grammar_entry_evaluation(parsed, DEVICE, FAS_CHAMPION),
+        "parsed": grammar_entry_evaluation(parsed, DEVICE, FAS_CHAMPION, samples=1),
         "fas_2d": grammar_entry_evaluation(fas.fas_2d(5, 9, dtype=torch.float32), DEVICE,
-                                           FAS_CHAMPION),
+                                           FAS_CHAMPION, samples=1),
     }
     launched = check_no_launch(failures, "problem_file_fas")
     emit({"phase": "problem_file_fas", "spec": os.path.relpath(FAS_SPEC, ROOT),
@@ -1690,7 +1769,7 @@ def phase_dispatch(failures: list) -> dict:
     problem = poisson_2d(min_level=5, max_level=9, dtype=torch.float32)
     pset = bench_pset(problem)
     rng = random.Random(20260816)
-    trees = [gp.gen_grow(pset, 2, 16, rng=rng) for _ in range(16)]
+    trees = [gp.gen_grow(pset, 2, 16, rng=rng) for _ in range(DISPATCH_TREES)]
     warm = gp.gen_grow(pset, 2, 10, rng=rng)
     record = {"phase": "dispatch", "n_individuals": len(trees)}
     runs = {}
@@ -1784,12 +1863,12 @@ def phase_dispatch(failures: list) -> dict:
 MESH_SCRIPT = os.path.join(ROOT, "scripts", "torch_mesh_dryrun.py")
 
 
-def _mesh_run(backend: str, ranks: int, compare: bool) -> tuple:
-    """scripts/torch_mesh_dryrun.py under torchrun: (exit code, the ranks'
-    JSON records, the output's tail)."""
+def _mesh_run(backend: str, ranks: int, compare: bool, extra=()) -> tuple:
+    """scripts/torch_mesh_dryrun.py under torchrun with `extra` arguments:
+    (exit code, the ranks' JSON records, the output's tail)."""
     command = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(ranks),
                "--master_port", str(_free_port()), MESH_SCRIPT, "--backend", backend,
-               "--timeout", "120"] + (["--compare"] if compare else [])
+               "--timeout", "120"] + (["--compare"] if compare else []) + list(extra)
     # A session of its own: on a timeout the launcher and its ranks go
     # together.
     proc = subprocess.Popen(command, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
@@ -1805,12 +1884,291 @@ def _mesh_run(backend: str, ranks: int, compare: bool) -> tuple:
     return proc.returncode, sorted(records, key=lambda r: r["rank"]), (out + err)[-2000:]
 
 
-def phase_mesh(failures: list) -> int:
+def _mesh_configs() -> list:
+    """(backend, ranks) of the mesh runs: one NCCL rank per card on two or
+    more cards; on one card 2 gloo ranks (NCCL refuses two ranks on one
+    GPU) and 1 NCCL rank."""
+    cards = torch.cuda.device_count()
+    return [("nccl", cards)] if cards >= 2 else [("gloo", 2), ("nccl", 1)]
+
+
+def _mesh_family_runs(failures: list, problem: str, extra: list, compare: bool,
+                      configs=None) -> list:
+    """scripts/torch_mesh_dryrun.py --problem `problem` on `configs` (every
+    mesh configuration by default), the first with --compare when
+    `compare`: [(backend, ranks, records, seconds)] of the runs that exited
+    0 with a record per rank; the others are failures."""
+    runs = []
+    for index, (backend, ranks) in enumerate(_mesh_configs() if configs is None else configs):
+        t0 = time.perf_counter()
+        rc, records, tail = _mesh_run(backend, ranks, compare and index == 0,
+                                      ["--problem", problem] + extra)
+        if rc != 0 or len(records) != ranks:
+            failures.append(f"mesh {problem}: {backend} × {ranks} exited {rc} with "
+                            f"{len(records)} records: {tail}")
+            continue
+        runs.append((backend, ranks, records, time.perf_counter() - t0))
+    return runs
+
+
+def _iteration_fields(result: dict) -> dict:
+    return {k: result.get(k) for k in ("rho", "iterations", "converged", "ms_to_target",
+                                       "ms_per_iteration", "probe", "probe_iterations",
+                                       "stages", "kernel_launches")}
+
+
+def mesh_fas(failures: list) -> tuple:
+    """(a) FAS at 511², float32, levels 5-9, `replicate_below` 64: the
+    stored champion and the textbook Newton V(2,2) on the mesh; the first
+    run's rank 0 evaluates both unsharded.  The champion must agree (ρ 2 %,
+    ±1); the textbook's ρ comes from the stall rule: printed."""
+    record, launches, unsharded = {"runs": []}, 0, None
+    for backend, ranks, records, seconds in _mesh_family_runs(
+            failures, "fas", ["--replicate-below", "64"], compare=True):
+        b = records[0]["B"]
+        unsharded = records[0].get("unsharded", unsharded)
+        run = {"backend": backend, "ranks": ranks, "s": seconds, "route": b["route"],
+               "sharded_levels": b["sharded_levels"], "counts": b["counts"],
+               "cycles": {name: _iteration_fields(c) for name, c in b["cycles"].items()}}
+        record["runs"].append(run)
+        run_launches = [c["kernel_launches"] for r in records for c in r["B"]["cycles"].values()]
+        launches += sum(run_launches)
+        if any(run_launches):
+            failures.append(f"mesh fas: {backend} × {ranks} launched the kernel {run_launches}")
+        verdicts = [{n: (c["rho"], c["iterations"]) for n, c in r["B"]["cycles"].items()}
+                    for r in records]
+        if any(v != verdicts[0] for v in verdicts):
+            failures.append(f"mesh fas: the ranks of {backend} × {ranks} disagree")
+        if unsharded is None:
+            failures.append("mesh fas: no unsharded run to compare with")
+            continue
+        mesh, plain = b["cycles"]["champion"], unsharded["champion"]
+        if not (abs(mesh["rho"] - plain["rho"]) <= 0.02 * plain["rho"]
+                and abs(mesh["iterations"] - plain["iterations"]) <= 1):
+            failures.append(f"mesh fas: {backend} × {ranks} champion {mesh['rho']} / "
+                            f"{mesh['iterations']} vs unsharded {plain['rho']} / "
+                            f"{plain['iterations']}")
+    record["unsharded"] = None if unsharded is None else {
+        name: _iteration_fields(c) for name, c in unsharded.items()}
+    return record, launches
+
+
+def mesh_helmholtz(failures: list, unsharded: dict, configs: list) -> tuple:
+    """(b) Helmholtz, complex128, levels 3-7, k = 80, the textbook V(2,1)
+    ω 0.6, the outer cap cut to LADDER_CAP as the helmholtz phase's, and
+    `replicate_below` 16, so that 127² and 63² are split, on `configs`;
+    `unsharded` is the helmholtz phase's k = 80 rung on this card.  Each
+    run must converge with the unsharded probe verdict and stages, the
+    count within 10 %.  Returns (the runs' records, launches)."""
+    runs, launches = [], 0
+    for backend, ranks, records, seconds in _mesh_family_runs(
+            failures, "helmholtz",
+            ["--replicate-below", "16", "--outer-cap", str(LADDER_CAP)], compare=False,
+            configs=configs):
+        b = records[0]["B"]
+        run = {"backend": backend, "ranks": ranks, "s": seconds, "route": b["route"],
+               "sharded_levels": b["sharded_levels"], "counts": b["counts"],
+               "ms_per_outer_iteration": b["ms_per_iteration"], **_iteration_fields(b)}
+        runs.append(run)
+        run_launches = [r["B"]["kernel_launches"] for r in records]
+        launches += sum(run_launches)
+        if any(run_launches):
+            failures.append(f"mesh helmholtz: {backend} × {ranks} launched the kernel "
+                            f"{run_launches}")
+        if any((r["B"]["rho"], r["B"]["iterations"]) != (b["rho"], b["iterations"])
+               for r in records):
+            failures.append(f"mesh helmholtz: the ranks of {backend} × {ranks} disagree")
+        if not (b["converged"] and unsharded["converged"]
+                and (b["probe"], b["stages"]) == (unsharded["probe"], unsharded["stages"])
+                and abs(b["iterations"] - unsharded["iterations"])
+                <= 0.1 * unsharded["iterations"]):
+            failures.append(f"mesh helmholtz: {backend} × {ranks} {_iteration_fields(b)} vs "
+                            f"unsharded {unsharded}")
+    return runs, launches
+
+
+# One rank of scripts/torch_optimize.py on a mesh: argv after the rank, the
+# world size and the port.  Every generate_and_evaluate is recorded by the
+# canonical string of its cycle (a string of this process: its stencil
+# fingerprints hash per process), so the halls of fame leave with the
+# fitness this rank measured for each, if it evaluated it; one JSON line at
+# the end.
+_OPTIMIZE_RANK = """
+import json, os, sys
+rank, world, port, argv = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4:]
+os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=port, RANK=str(rank),
+                  WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+argv[argv.index("--output") + 1] += f"_rank{rank}"
+import datetime
+import torch.distributed as dist
+# gloo: several ranks on one card, which NCCL refuses.
+dist.init_process_group("gloo", timeout=datetime.timedelta(seconds=600))
+from evostencils_torch.backend.evaluation import TorchProgramGenerator
+from evostencils_torch.ir.transformations import canonical_string
+from evostencils_torch.ops import rb_sweep
+from scripts import torch_optimize
+
+measured = {}
+evaluate = TorchProgramGenerator.generate_and_evaluate
+
+def recording(self, expression, *args, **kwargs):
+    result = evaluate(self, expression, *args, **kwargs)
+    measured[canonical_string(expression)] = list(result)
+    return result
+
+TorchProgramGenerator.generate_and_evaluate = recording
+run = torch_optimize.run(argv)
+hof_measured = [[str(i), measured.get(canonical_string(run.optimizer.compile_individual(i)[0]))]
+                for hof in run.halls_of_fame for i in hof]
+print(json.dumps({
+    "rank": rank, "best": run.best, "tuning": run.tuning,
+    "logbooks": [[{k: v for k, v in r.items() if k != "gen_s"} for r in lb.records]
+                 for lb in run.logbooks],
+    "halls_of_fame": [[[str(i), list(i.fitness_values)] for i in hof]
+                      for hof in run.halls_of_fame],
+    "evaluations": run.optimizer._total_number_of_evaluations,
+    "evolution_s": run.evolution_s, "hof_measured": hof_measured,
+    "counts": dict(run.generator.layout.counts),
+    "score_group_is_sp": run.generator.layout.score_group is run.generator.layout.sp_group,
+    "kernel_launches": rb_sweep.launches.total()}, default=float), flush=True)
+dist.destroy_process_group()
+"""
+
+# The rows evaluate different individuals, so a row may wait minutes at the
+# gather for the other: the collectives' bound is the ranks' own.
+MESH_MULTIHOST_ARGS = [
+    "--mesh", "2,2", "--multihost", "--seed", "3", "--method", "nsga2",
+    "--mu", "4", "--lambda", "4", "--generations", "1", "--population-initialization-factor",
+    "1", "--evaluation-samples", "1", "--min-level", "5", "--max-level", "9",
+    "--collective-timeout", "600", "--output", os.path.join(ROOT, "chiprun_out", "mesh_multihost"),
+]
+MESH_TUNE_ARGS = [
+    "--mesh", "1,2", "--tune", "--seed", "3", "--method", "nsga2",
+    "--mu", "2", "--lambda", "2", "--generations", "1", "--population-initialization-factor",
+    "1", "--evaluation-samples", "1", "--min-level", "3", "--max-level", "6",
+    "--replicate-below", "16",
+    "--collective-timeout", "120", "--output", os.path.join(ROOT, "chiprun_out", "mesh_tune"),
+]
+
+
+def _start_optimize_ranks(world: int, argv: list) -> list:
+    port = str(_free_port())
+    return [subprocess.Popen(
+        [sys.executable, "-c", _OPTIMIZE_RANK, str(rank), str(world), port, *argv],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT), start_new_session=True)
+        for rank in range(world)]
+
+
+def _finish_optimize_ranks(failures: list, label: str, procs: list, started: float) -> list:
+    """Every rank's JSON record, each with `wall_s` since this phase's
+    runs started; a rank that fails or stays silent is a failure.  Each
+    rank is bounded by 600 s; stragglers are killed."""
+    records = []
+    deadline = time.perf_counter() + 600
+    for rank, proc in enumerate(procs):
+        try:
+            out, err = proc.communicate(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                if p.poll() is None:
+                    os.killpg(p.pid, signal.SIGKILL)
+            out, err = proc.communicate()
+        lines = [line for line in out.splitlines() if line.startswith("{")]
+        if proc.returncode != 0 or not lines:
+            failures.append(f"{label}: rank {rank} exited {proc.returncode}: "
+                            f"{(out + err)[-1500:]}")
+            continue
+        records.append({**json.loads(lines[-1]), "wall_s": time.perf_counter() - started})
+    return records
+
+
+def mesh_multihost(failures: list, records: list) -> dict:
+    """(c) scripts/torch_optimize.py --mesh 2,2 --multihost on 4 gloo ranks
+    of this card: four identical logbooks, each dp row evaluated its half,
+    rank 0 alone wrote; three gathered individuals re-evaluated here
+    unsharded with the plain ops, as the mesh runs them: ρ within 1e-4
+    relative, iterations ±1 (the reference's bounds,
+    tests/test_parallel.py:292-303)."""
+    record = {"args": " ".join(MESH_MULTIHOST_ARGS[:-2])}
+    if len(records) != 4:
+        return record
+    first = records[0]
+    record.update({
+        "wall_s": max(r["wall_s"] for r in records),
+        "evaluations_by_rank": [r["evaluations"] for r in records],
+        "evolution_s": [r["evolution_s"] for r in records],
+        "counts": first["counts"], "score_group_is_sp": first["score_group_is_sp"],
+        "kernel_launches": [r["kernel_launches"] for r in records]})
+    if any((r["logbooks"], r["halls_of_fame"]) != (first["logbooks"], first["halls_of_fame"])
+           for r in records):
+        failures.append("mesh multihost: the ranks bred different populations")
+    if not all(r["score_group_is_sp"] for r in records):
+        failures.append("mesh multihost: a time was not reduced within its dp row")
+    rows = record["evaluations_by_rank"]
+    if not (rows[0] == rows[1] > 0 and rows[2] == rows[3] > 0):
+        failures.append(f"mesh multihost: evaluations by rank {rows}")
+    out = MESH_MULTIHOST_ARGS[MESH_MULTIHOST_ARGS.index("--output") + 1]
+    written = [os.path.isdir(f"{out}_rank{rank}") for rank in range(4)]
+    if written != [True, False, False, False]:
+        failures.append(f"mesh multihost: output written by ranks {written}")
+    measured = {}
+    for r in records:
+        for string, fitness in r["hof_measured"]:
+            if fitness is not None:
+                measured.setdefault(string, fitness)
+    levels = [int(MESH_MULTIHOST_ARGS[MESH_MULTIHOST_ARGS.index(flag) + 1])
+              for flag in ("--min-level", "--max-level")]
+    problem = poisson_2d(*levels, dtype=torch.float32)
+    pset = family_pset(problem)
+    checked = []
+    for string, on_mesh in measured.items():
+        if not on_mesh[0] < 1e50 or len(checked) == 3:
+            continue
+        expression = gp.compile_tree(gp.parse_tree(string, pset), pset)[0]
+        generator = TorchProgramGenerator(problem, dtype=torch.float32, device=DEVICE)
+        generator.lowering = CycleLowering(torch.float32, DEVICE, use_kernels=False)
+        _, rho, iterations = generator.generate_and_evaluate(expression, evaluation_samples=1)
+        checked.append({"mesh": on_mesh[1:], "unsharded": [rho, iterations]})
+        if not (abs(on_mesh[1] - rho) <= 1e-4 * max(1.0, abs(rho))
+                and abs(on_mesh[2] - iterations) <= 1):
+            failures.append(f"mesh multihost: {on_mesh} on the mesh vs {rho} / {iterations}")
+    record["reevaluated"] = checked
+    if len(checked) != 3:
+        failures.append(f"mesh multihost: {len(checked)} converged gathered individuals "
+                        "re-evaluated, not 3")
+    return record
+
+
+def mesh_tune(failures: list, records: list) -> dict:
+    """(d) scripts/torch_optimize.py --mesh 1,2 --tune on 2 gloo ranks:
+    both publish rank 0's ω, and either ρ did not grow or the rejected file
+    was written, by rank 0 alone."""
+    record = {"args": " ".join(MESH_TUNE_ARGS[:-2])}
+    if len(records) != 2:
+        return record
+    record.update({"tuning": [r["tuning"] for r in records], "counts": records[0]["counts"],
+                   "wall_s": max(r["wall_s"] for r in records),
+                   "evolution_s": [r["evolution_s"] for r in records],
+                   "kernel_launches": [r["kernel_launches"] for r in records]})
+    if records[0]["tuning"] is None or records[0]["tuning"] != records[1]["tuning"]:
+        failures.append(f"mesh tune: the ranks tuned {record['tuning']}")
+        return record
+    rho0, rho1, _ = records[0]["tuning"]
+    out = MESH_TUNE_ARGS[MESH_TUNE_ARGS.index("--output") + 1]
+    name = "individual_0_tuned.txt" if rho1 <= rho0 else "individual_0_tune_rejected.txt"
+    if not os.path.isfile(os.path.join(f"{out}_rank0", name)) or os.path.isdir(f"{out}_rank1"):
+        failures.append(f"mesh tune: {name} not written by rank 0 alone")
+    return record
+
+
+def phase_mesh(failures: list, helmholtz_k80: dict) -> int:
     """The 511² V(2,2) on a device mesh against the same cycle unsharded;
-    returns the kernel's launches on the mesh path, over all ranks."""
+    then FAS, Helmholtz, --multihost on the mesh and --tune on it.  Returns
+    the kernel's launches on the mesh path, over all ranks of every run."""
     start = time.perf_counter()
     cards = torch.cuda.device_count()
-    configs = [("nccl", cards)] if cards >= 2 else [("gloo", 2), ("nccl", 1)]
+    configs = _mesh_configs()
     record = {"phase": "mesh", "cards": cards, "runs": []}
     unsharded = None
     launches = 0
@@ -1851,6 +2209,29 @@ def phase_mesh(failures: list) -> int:
     record["unsharded"] = unsharded
     # The JAX package's CPU virtual-mesh run (a cross-check, not a target).
     record["reference_cpu_mesh"] = {"rho": 0.0612, "iterations": 10, "file": "MULTICHIP_r05.json"}
+    record["poisson_s"] = time.perf_counter() - start
+
+    # (c) and (d) run beside (a) and (b), whose times they slow: their
+    # logbooks and ω are checked, not their times, and (a) and (b) judge ρ
+    # and counts.
+    t0 = time.perf_counter()
+    multihost_procs = _start_optimize_ranks(4, MESH_MULTIHOST_ARGS)
+    tune_procs = _start_optimize_ranks(2, MESH_TUNE_ARGS)
+    record["fas"], fas_launches = mesh_fas(failures)
+    record["fas"]["s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    helmholtz_runs, helmholtz_launches = mesh_helmholtz(failures, helmholtz_k80, configs)
+    record["helmholtz"] = {"runs": helmholtz_runs, "unsharded": helmholtz_k80,
+                           "s": time.perf_counter() - t1}
+    multihost_records = _finish_optimize_ranks(failures, "mesh multihost", multihost_procs, t0)
+    tune_records = _finish_optimize_ranks(failures, "mesh tune", tune_procs, t0)
+    record["multihost"] = mesh_multihost(failures, multihost_records)
+    record["tune"] = mesh_tune(failures, tune_records)
+    record["optimize_s"] = time.perf_counter() - t0
+    optimize_launches = sum(r["kernel_launches"] for r in multihost_records + tune_records)
+    if optimize_launches:
+        failures.append(f"mesh: the optimize runs launched the kernel {optimize_launches} times")
+    launches += fas_launches + helmholtz_launches + optimize_launches
     record["mesh_launches"] = launches
     record["phase_s"] = time.perf_counter() - start
     emit(record)
@@ -1869,7 +2250,7 @@ def main() -> int:
     launches_by_role, generator, champion, champion_rho = phase_main_path(failures)
     evolve_launches = phase_evolve(failures)
     phase_profile(generator, champion)
-    phase_helmholtz(failures)
+    helmholtz_k80 = phase_helmholtz(failures)
     phase_helmholtz_c64(failures)
     cgs_launches = phase_krylov_cgs(failures)
     phase_helmholtz_evolve(failures)
@@ -1888,7 +2269,7 @@ def main() -> int:
     family_launches["problem_file_fas"] = phase_problem_file_fas(failures)
     scripts_launches = phase_scripts(failures)
     dispatch_launches = phase_dispatch(failures)
-    mesh_launches = phase_mesh(failures)
+    mesh_launches = phase_mesh(failures, helmholtz_k80)
     if failures:
         for failure in failures:
             print(f"chip_smoke FAILED: {failure}", file=sys.stderr)

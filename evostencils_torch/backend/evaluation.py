@@ -35,16 +35,20 @@ on the device, so the executed count and the exit reason match.  Times
 are CUDA-event spans on a GPU and `perf_counter` spans on the CPU.
 
 `TorchProgramGenerator(problem, mesh=...)` evaluates on a (dp, sp) device
-mesh (parallel/mesh.py), one process per rank, every rank calling it for
-the same individuals in the same order: the state is split by rows over
-`sp` and the same on every `dp` row (the reference's P("sp", None)).  The
-probe state is made whole and cut, so a sharded run starts from the
-unsharded run's state; every norm a loop decides on is all-reduced; the
-float64 host residual gathers the slabs and cuts its result; and every
-measured time is the largest over all ranks, so every rank scores, and
-breeds, alike.  2D and 3D Poisson, variable coefficients and elasticity
-run under a mesh; FAS, the outer-Krylov (Helmholtz) problems and complex
-dtypes raise `NotPortedError` there.
+mesh (parallel/mesh.py), one process per rank, every rank of an `sp` group
+calling it for the same individuals in the same order: the state is split
+by rows over `sp`, and by default the same on every `dp` row (the
+reference's P("sp", None)); under MultiHostDispatcher(layout=...) the `dp`
+rows evaluate different individuals.  The probe state is
+made whole and cut, so a sharded run starts from the unsharded run's
+state; every norm and inner product a loop decides on is all-reduced over
+`sp` (the outer BiCGStab's too); the 64-bit host residual gathers the
+slabs and cuts its result; and every measured time is the largest over the
+ranks that evaluate the individual, so every rank scores, and breeds,
+alike.  Every family runs under a mesh, in every dtype: 2D and 3D Poisson,
+variable coefficients, elasticity, FAS (one stage on slabs) and Helmholtz
+(the probe, the outer stages and the k-ladder, with the cycle on slabs as
+the preconditioner).
 """
 
 from __future__ import annotations
@@ -57,7 +61,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from evostencils_torch import NotPortedError, dtype_is_64bit, dtype_is_complex, numpy_dtype
+from evostencils_torch import dtype_is_64bit, dtype_is_complex, numpy_dtype
 from evostencils_torch.backend.lowering import CycleLowering
 from evostencils_torch.backend.vm import CycleVM, Program
 from evostencils_torch.ir import base, system
@@ -134,8 +138,6 @@ class TorchProgramGenerator:
             # ones in stage windows of 1e-4, well above their floor.
             measure_reduction = self.epsilon if is_f64 else max(self.epsilon, 1e-4)
         self.measure_reduction = measure_reduction
-        if mesh is not None:
-            self._refuse_under_mesh(problem, self.dtype)
         self.lowering = CycleLowering(
             self.dtype, self.device, mesh=mesh, replicate_below=replicate_below)
         self.layout = self.lowering.layout
@@ -163,19 +165,6 @@ class TorchProgramGenerator:
         # iterate, or "unused": it reduced nothing), its iterations and the
         # number of full-cap stages that ran.
         self.last_outer_solve = None
-
-    @staticmethod
-    def _refuse_under_mesh(problem, dtype):
-        """The families whose ops are not split over a mesh yet: no
-        unsharded run stands in for them."""
-        name = getattr(problem, "name", "problem")
-        if getattr(problem, "uses_fas", False):
-            raise NotPortedError(f"FAS ({name}): a nonlinear problem under a device mesh")
-        if getattr(problem, "outer_solver", None):
-            raise NotPortedError(
-                f"Helmholtz ({name}): the outer Krylov solve under a device mesh")
-        if dtype_is_complex(dtype):
-            raise NotPortedError(f"{name} in {dtype} under a device mesh")
 
     def vm_stats(self) -> dict:
         total = self.vm_hits + self.vm_misses
@@ -663,8 +652,10 @@ class TorchProgramGenerator:
     def _outer_solve_raw(self, step, outer_operator, max_iterations):
         """solve(f, omegas) -> (x, res, res0, iterations): BiCGStab on the
         outer operator from a zero guess, one cycle on (0, ·) as the
-        preconditioner."""
+        preconditioner; on a mesh every inner product and norm is summed
+        over the finest grid's slabs."""
         lowering = self.lowering
+        slab = lowering._slab(outer_operator.grid[0])
         target = self.problem.outer_solver["target_reduction"]
         if not dtype_is_64bit(self.dtype):
             # Per-stage device target: in float32/complex64 the residual
@@ -681,8 +672,8 @@ class TorchProgramGenerator:
                 return step(sops.zeros_like_state(state), state, omegas)
 
             x, it, res = krylov.preconditioned_bicgstab(
-                apply_a, apply_m, f, max_iterations, target)
-            return x, res, float(sops.l2_norm(f)), it
+                apply_a, apply_m, f, max_iterations, target, slab=slab)
+            return x, res, float(sops.l2_norm(f, slab)), it
 
         return solve
 
@@ -779,7 +770,7 @@ class TorchProgramGenerator:
                     # The survivor's probe iterations are real work: they
                     # seed the staged solve.
                     report["probe"] = "survived"
-                    probe_seed = (self._to_host(p_x), probe_operator, p_it)
+                    probe_seed = (self._to_host(p_x, probe_operator.grid), probe_operator, p_it)
 
             (solve, outer_operator), omegas = self._build_outer_solver(expression)
 
@@ -824,7 +815,8 @@ class TorchProgramGenerator:
                     # individuals), unlike the host rel, which clamps at 1.
                     stage1_rho = (res / res0s) ** (1.0 / it) if res > 0.0 else infinity
                 total_it += it
-                x_total = tuple(a + b for a, b in zip(x_total, self._to_host(x)))
+                x_total = tuple(
+                    a + b for a, b in zip(x_total, self._to_host(x, outer_operator.grid)))
                 r_host = self._host_residual(outer_operator, x_total, f64)
                 new_rel = _host_norm(r_host) / res0_true
                 if new_rel <= true_target:
@@ -837,7 +829,7 @@ class TorchProgramGenerator:
                     return infinity, rho if math.isfinite(rho) else infinity, total_it
                 rel = new_rel
                 rhs_host = r_host
-        except _DEVICE_ERRORS:
+        except _DEVICE_ERRORS + _RANK_ERRORS:
             raise
         except (RuntimeError, ValueError, NotImplementedError, FloatingPointError):
             return infinity, infinity, infinity

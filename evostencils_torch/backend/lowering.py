@@ -49,8 +49,12 @@ kernels off under a mesh (evostencils_tpu/backend/lowering.py:73-81).  A
 level whose slabs would hold fewer than `replicate_below` rows is held
 whole on every rank: the RESTRICT into it gathers, the PROLONG out of it
 cuts this rank's rows, and a dense coarse solve on a level still split
-gathers its right-hand side.  Nonlinear (FAS) operators raise
-`NotPortedError` under a mesh.
+gathers its right-hand side.  A nonlinear (FAS) operator applies its
+Laplacian on the slab with the same halo exchange; its point solves are
+pointwise, and its 200 Picard sweeps run on the coarsest level whether the
+replication rule holds that level whole or leaves it split.  Complex
+coefficient planes (Helmholtz with Robin boundaries) are cut to the slab
+as real ones are.
 """
 
 from __future__ import annotations
@@ -61,7 +65,7 @@ from typing import Callable, Sequence, Tuple
 import numpy as np
 import torch
 
-from evostencils_torch import NotPortedError, dtype_is_complex, numpy_dtype
+from evostencils_torch import dtype_is_complex, numpy_dtype
 from evostencils_torch.ir import base, system
 from evostencils_torch.ir import partitioning as part
 from evostencils_torch.ir.krylov import KrylovSubspaceMethod
@@ -187,10 +191,7 @@ class CycleLowering:
             for entry, field in zip(row, state):
                 gen = getattr(entry, "stencil_generator", None)
                 if _is_nonlinear(gen):
-                    if self.layout is not None:
-                        raise NotPortedError(
-                            "FAS: a nonlinear operator under a device mesh")
-                    term = gen.apply(field, entry.grid)
+                    term = gen.apply(field, entry.grid, self._slab(entry.grid))
                 elif isinstance(entry, base.ZeroOperator):
                     continue
                 else:

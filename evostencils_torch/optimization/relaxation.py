@@ -13,7 +13,9 @@ tensor (`CycleLowering.lower_parameterized`), bounded to [0.1, 1.9] by a
 sigmoid.  The red-black CUDA kernel has no backward, so the tuner lowers
 with `use_kernels=False`, as the reference tunes with `use_pallas=False`:
 the masked half-sweeps in plain torch ops.  Every other caller launches
-the kernel.
+the kernel.  On a device mesh every rank tunes the whole grid on its own
+device, as the reference tunes unsharded, and takes rank 0's factors
+(`layout`).
 
 `tune_outer_relaxation` is the reference's CMA-ES over the ω vector
 against a generator's measured iteration count: host code over any
@@ -92,6 +94,7 @@ def tune_relaxation_factors(
     learning_rate: float = 0.05,
     omega_bounds: Tuple[float, float] = (0.1, 1.9),
     verbose: bool = False,
+    layout=None,
 ):
     """Return (tuned_omegas, loss_history) and write the tuned factors back
     into the expression's Cycle nodes.
@@ -100,13 +103,19 @@ def tune_relaxation_factors(
     terminals (np.linspace(0.1, 1.9, 37)), but the tuned values are
     continuous.  `lowering` defaults to `CycleLowering(problem.dtype,
     use_kernels=False)` on the card; a lowering that launches kernels is
-    refused, since they have no backward.
+    refused, since they have no backward.  With the `layout` of a device
+    mesh (parallel/mesh.MeshLayout) the lowering must have no mesh: every
+    rank tunes on its own device and then takes rank 0's factors, since
+    autograd on a card need not be bitwise deterministic, so that every
+    rank writes back the same ω.
     """
     if lowering is None:
         lowering = CycleLowering(problem.dtype, use_kernels=False)
     if lowering.use_kernels:
         raise ValueError("the ω tuner differentiates through plain torch ops: "
                          "pass a lowering built with use_kernels=False")
+    if lowering.layout is not None:
+        raise ValueError("the ω tuner runs on one device: pass a lowering without a mesh")
     if measure_cycles is None:
         measure_cycles = 5
     loss_fn, to_omegas, params = contraction_loss(
@@ -138,6 +147,8 @@ def tune_relaxation_factors(
                   f"{value / measure_cycles:.4f}", flush=True)
 
     tuned = [float(w) for w in to_omegas(best[1])]
+    if layout is not None:
+        tuned = layout.broadcast_values(tuned, lowering.device)
     # Write the tuned factors back into the IR (canonical slot order).
     for cycle, omega in zip(collect_cycles(expression), tuned):
         cycle.relaxation_factor = omega

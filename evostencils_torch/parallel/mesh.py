@@ -18,9 +18,10 @@ derived:
     point-to-point transfers on the `sp` group;
   * global row offsets for every op that indexes by position (colour
     masks, block periods, injection);
-  * all-reductions for every norm and inner product a host decision reads,
-    and the maximum over all ranks of every measured time, so that every
-    rank takes the same branches and breeds the same populations;
+  * all-reductions over the `sp` group for every norm and inner product a
+    host decision reads, and the maximum of every measured time over the
+    ranks that evaluate one individual together, so that every rank takes
+    the same branches and breeds the same populations;
   * the replication rule: a level whose smallest slab would hold fewer
     than `replicate_below` rows is held whole by every rank.  The
     restriction into such a level gathers it, the prolongation out of it
@@ -31,11 +32,19 @@ card each; gloo serves the CPU and several ranks on one card (NCCL refuses
 two ranks on one GPU).  gloo's send and recv do not take card tensors (its
 TCP transport writes from the device pointer and the process aborts; torch
 2.11 on an H100), so every gloo transfer of card tensors is staged through
-host buffers (the "host" route).  The `dp` axis holds replicas:
-`TorchProgramGenerator(mesh=...)` evaluates the same individual on every
-`dp` row, as the reference's generator does with its state pinned to
-P("sp", None); `batched_sharded_evaluation` gives each `dp` row its own
-instances.
+host buffers (the "host" route).  Complex states travel as their real
+views (torch.distributed's rule for send, recv, all-reduce sums and
+all-gathers), on either route.
+
+The `dp` axis holds replicas or splits work.  `TorchProgramGenerator(mesh=...)`
+evaluates the same individual on every `dp` row, as the reference's
+generator does with its state pinned to P("sp", None), and a measured time
+is the largest over the whole mesh.  `MultiHostDispatcher(layout=...)`, the
+reference's production topology, gives each `dp` row its own share of the
+population and makes a time the largest over the row's `sp` group
+(`MeshLayout.score_group`): the rows then make different numbers of calls,
+and a collective across rows would wait forever.
+`batched_sharded_evaluation` gives each `dp` row its own instances.
 """
 
 from __future__ import annotations
@@ -131,7 +140,7 @@ class MeshLayout:
     row split of every grid shape, the replication rule and the collectives,
     with counts of what it sent (`counts`: "halo" exchanges, "gather"s of a
     level at the replication boundary, "host_gather"s of whole fields for
-    the host, "all_reduce"s)."""
+    the host, "all_reduce"s, "broadcast"s)."""
 
     def __init__(self, mesh, replicate_below: int = 64):
         if tuple(mesh.mesh_dim_names or ()) != DIM_NAMES:
@@ -150,6 +159,11 @@ class MeshLayout:
         self.sp_size = len(self.sp_ranks)
         self.dp_size = len(self.dp_ranks)
         self.backend = str(dist.get_backend(self.sp_group))
+        # The ranks that evaluate one individual together: the whole mesh
+        # (None, the default group's world, as build_mesh makes it), or the
+        # `sp` group once a MultiHostDispatcher splits the population over
+        # the `dp` rows.
+        self.score_group = None
         self.counts = collections.Counter()
         self._slabs = {}
 
@@ -194,13 +208,26 @@ class MeshLayout:
         dist.all_reduce(wire, op=dist.ReduceOp.SUM, group=self.sp_group)
         return wire.to(t.device).reshape(t.shape)
 
+    def _host_wire(self, device) -> str:
+        """Where a value made on the host travels: on the card under NCCL,
+        on the host under gloo."""
+        return device if self.route(device) == "device" and "nccl" in self.backend else "cpu"
+
     def all_reduce_max(self, value: float, device) -> float:
-        """The largest of every rank's `value` (all ranks of the mesh)."""
+        """The largest `value` of the ranks that evaluate one individual
+        together (`score_group`)."""
         self.counts["all_reduce"] += 1
-        wire_device = device if self.route(device) == "device" and "nccl" in self.backend else "cpu"
-        t = torch.tensor([float(value)], dtype=torch.float64, device=wire_device)
-        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        t = torch.tensor([float(value)], dtype=torch.float64, device=self._host_wire(device))
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.score_group)
         return float(t.item())
+
+    def broadcast_values(self, values, device) -> list:
+        """Rank 0's `values` (floats) on every rank of the mesh."""
+        self.counts["broadcast"] += 1
+        t = torch.tensor([float(v) for v in values], dtype=torch.float64,
+                         device=self._host_wire(device))
+        dist.broadcast(t, src=0)
+        return [float(v) for v in t.cpu()]
 
     def gather(self, t: torch.Tensor, slab: RowSlab, count: str = "gather") -> torch.Tensor:
         """The whole grid from every rank's rows of it (all-gather on the

@@ -50,10 +50,13 @@ class NonlinearLambdaExpGenerator:
 
     # ---- nonlinear protocol ----
 
-    def apply(self, u, grid):
-        from evostencils_torch.ops.stencil_ops import apply_constant_stencil
+    def apply(self, u, grid, slab=None):
+        """A(u) on the whole grid, or on this rank's rows of it (`slab`,
+        parallel/mesh.py: the Laplacian takes its halo rows from the
+        neighbouring ranks; the nonlinearity is pointwise)."""
+        from evostencils_torch.ops.stencil_ops import apply_stencil
 
-        return apply_constant_stencil(u, self._laplace(grid)) + self.nonlinear_term(u)
+        return apply_stencil(u, self._laplace(grid), slab) + self.nonlinear_term(u)
 
     def nonlinear_term(self, u):
         return self.gamma * u * torch.exp(u)

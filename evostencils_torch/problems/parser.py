@@ -512,11 +512,14 @@ class ParsedNonlinearGenerator:
 
     # ---- nonlinear protocol (backend/lowering.py) ----
 
-    def apply(self, u, grid):
-        from evostencils_torch.ops.stencil_ops import apply_constant_stencil
+    def apply(self, u, grid, slab=None):
+        """A(u) on the whole grid, or on this rank's rows of it (`slab`:
+        the linear stencil takes its halo rows from the neighbouring ranks;
+        the nonlinearity is pointwise)."""
+        from evostencils_torch.ops.stencil_ops import apply_stencil
 
         return (
-            apply_constant_stencil(u, self._linear.generate_stencil(grid))
+            apply_stencil(u, self._linear.generate_stencil(grid), slab)
             + self.nonlinear_term(u)
         )
 

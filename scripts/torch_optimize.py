@@ -53,15 +53,23 @@ fitnesses, and rank 0 writes the artifacts):
 --mesh DP,SP evaluates every individual on a (dp, sp) device mesh of the
 DP·SP processes torchrun starts (evostencils_torch/parallel/mesh.py): the
 fine grids split by rows over sp, the same evaluation on every dp row, NCCL
-with one card per process (gloo with --cpu); every process breeds the same
-populations from --seed and the largest measured time of all ranks, and
-rank 0 writes the artifacts and checkpoints:
+with one card per process (gloo with --cpu, or with a gloo process group
+the caller set up); every process breeds the same populations from
+--seed and the largest measured time of all ranks, and rank 0 writes the
+artifacts and checkpoints:
   torchrun --nproc_per_node 4 scripts/torch_optimize.py --mesh 2,2 \
       --seed 3 --mu 8 --lambda 8 --generations 1
-It refuses --multihost (a population split over processes, each on a mesh
-of its own, is not ported) and --tune (the tuner differentiates a cycle on
-one device).  --replicate-below sets the replication rule's rows (64, the
-reference's default); --collective-timeout bounds every collective.
+With --multihost as well, the dp rows split each generation's evaluations
+between them (the reference's production topology): the sp ranks of a row
+evaluate the row's share together, each time is the largest within the
+row, and the rows gather their fitnesses:
+  torchrun --nproc_per_node 4 scripts/torch_optimize.py --mesh 2,2 \
+      --multihost --seed 3 --mu 8 --lambda 8 --generations 1
+Every problem, problem file and dtype runs under --mesh.  --tune under
+--mesh tunes the whole grid on each process's own device, takes rank 0's
+ω on every rank and measures the tuned cycle on the mesh.
+--replicate-below sets the replication rule's rows (64, the reference's
+default); --collective-timeout bounds every collective.
 
 Without CUDA it stops unless --cpu is given.
 """
@@ -188,14 +196,8 @@ def parse_arguments(argv=None):
     if args.multihost and args.seed is None:
         parser.error("--multihost needs --seed: every process must breed the same populations")
     if args.mesh:
-        if args.multihost:
-            parser.error("--mesh with --multihost is not ported: a population split over "
-                         "processes that each evaluate on a mesh of their own")
         if args.seed is None:
             parser.error("--mesh needs --seed: every process must breed the same populations")
-        if args.tune:
-            parser.error("--tune with --mesh is not ported: the tuner differentiates a "
-                         "cycle on one device")
         try:
             args.mesh = tuple(int(x) for x in args.mesh.split(","))
         except ValueError:
@@ -285,17 +287,23 @@ def _write_artifacts(output_dir, args, best, program, pops, logbooks, hofs):
 def _tune(output_dir, optimizer, generator, best):
     """Gradient-tune the best individual's ω (scripts/optimize.py:291-320);
     publish the tuned string only when ρ did not get worse (the tuner's
-    probe is a linear error propagation, which a FAS cycle is not)."""
+    probe is a linear error propagation, which a FAS cycle is not).  On a
+    mesh every rank tunes the whole grid on its own device and takes rank
+    0's ω, then the mesh measures ρ before and after; only the caller with
+    an `output_dir` writes."""
     from evostencils_torch.optimization.relaxation import tune_relaxation_factors
 
     pset = optimizer._pset
     expr, _ = gp.compile_tree(gp.parse_tree(best, pset), pset)
     _, rho0, it0 = generator.generate_and_evaluate(expr, evaluation_samples=3)
     lowering = CycleLowering(generator.problem.dtype, generator.device, use_kernels=False)
-    tuned, _ = tune_relaxation_factors(expr, generator.problem, lowering=lowering)
+    tuned, _ = tune_relaxation_factors(expr, generator.problem, lowering=lowering,
+                                       layout=generator.layout)
     _, rho1, it1 = generator.generate_and_evaluate(expr, evaluation_samples=3)
     print(f"Gradient-tuned relaxation factors: rho {rho0:.4f} -> {rho1:.4f}, "
           f"iterations {it0} -> {it1}")
+    if output_dir is None:
+        return rho0, rho1, tuned
     if rho1 <= rho0:
         with open(os.path.join(output_dir, "individual_0_tuned.txt"), "w") as f:
             f.write(str(gp.parse_tree(best, pset)) + "\n")
@@ -310,15 +318,19 @@ def _tune(output_dir, optimizer, generator, best):
     return rho0, rho1, tuned
 
 
-def _multihost_dispatcher(cpu: bool):
+def _multihost_dispatcher(cpu: bool, layout=None):
     """A MultiHostDispatcher over a gloo process group, initialised from
     torchrun's environment (MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE)
     unless the caller initialised one; on a host with several cards each
-    process takes the card of its LOCAL_RANK."""
+    process takes the card of its LOCAL_RANK.  Given the `layout` of a
+    generator on a mesh (whose group is initialised) it splits over the
+    mesh's dp rows."""
     import torch.distributed as dist
 
     from evostencils_torch.parallel.dispatch import MultiHostDispatcher
 
+    if layout is not None:
+        return MultiHostDispatcher(layout=layout)
     if not dist.is_initialized():
         dist.init_process_group(backend="gloo")
     if not cpu:
@@ -328,7 +340,8 @@ def _multihost_dispatcher(cpu: bool):
 
 def _device_mesh(args):
     """The (dp, sp) DeviceMesh of --mesh over a process group from
-    torchrun's environment: NCCL, one card per process; gloo with --cpu."""
+    torchrun's environment unless the caller initialised one: NCCL, one
+    card per process; gloo with --cpu."""
     from evostencils_torch.parallel.mesh import build_mesh, init_from_env
 
     dp, sp = args.mesh
@@ -345,16 +358,20 @@ def run(argv=None) -> Run:
     args = parse_arguments(argv)
     problem = _build_problem(args)
     output_dir = args.output or f"results_{problem.name}_torch"
-    dispatcher = _multihost_dispatcher(args.cpu) if args.multihost else None
+    # The mesh first; a dispatcher on it splits over the dp rows of the
+    # generator's layout.
     mesh = _device_mesh(args) if args.mesh else None
+    dispatcher = _multihost_dispatcher(args.cpu) if args.multihost and mesh is None else None
     # Every process breeds the same populations; one writes them.
-    rank = dist.get_rank() if dispatcher is not None or mesh is not None else 0
+    rank = dist.get_rank() if args.multihost or mesh is not None else 0
     if rank == 0:
         os.makedirs(output_dir, exist_ok=True)
 
     generator = TorchProgramGenerator(
         problem, device="cpu" if args.cpu else "cuda", ladder_rungs=args.ladder_rungs,
         mesh=mesh, replicate_below=args.replicate_below)
+    if args.multihost and mesh is not None:
+        dispatcher = _multihost_dispatcher(args.cpu, generator.layout)
     convergence_evaluator = None
     performance_evaluator = None
     if args.model_based:
@@ -413,8 +430,10 @@ def run(argv=None) -> Run:
     tuning = None
     if rank == 0:
         _write_artifacts(output_dir, args, best, program, pops, logbooks, hofs)
-        if args.tune and not args.model_based:
-            tuning = _tune(output_dir, optimizer, generator, best)
+    # On a mesh the measurements are collective: every rank tunes.
+    if args.tune and not args.model_based and (rank == 0 or mesh is not None):
+        tuning = _tune(output_dir if rank == 0 else None, optimizer, generator, best)
+    if rank == 0:
         print(f"Results written to {output_dir}/")
     return Run(optimizer, generator, best, hofs, logbooks, evolution_s, tuning)
 

@@ -43,12 +43,8 @@ from evostencils_tpu.parallel.mesh import build_mesh as jax_build_mesh
 from evostencils_tpu.parallel.mesh import shard_state as jax_shard_state
 from evostencils_tpu.problems.poisson import poisson_2d as jax_poisson_2d
 from evostencils_tpu.problems.poisson import poisson_3d as jax_poisson_3d
-from evostencils_torch import NotPortedError
-from evostencils_torch.backend.evaluation import TorchProgramGenerator
 from evostencils_torch.ops import rb_sweep
 from evostencils_torch.parallel.mesh import mesh_shape, row_split
-from evostencils_torch.problems import build_named_problem
-from evostencils_torch.problems.poisson import poisson_2d
 from evostencils_torch.stencils import constant
 from torch_parity import JAX, Side
 from torch_mesh_worker import BLOCKS
@@ -274,17 +270,6 @@ class TestMeshProductPath:
             assert 0 < rho < 1
             assert abs(rho - rho_plain) <= 1e-6 * rho_plain and iterations == it_plain
 
-    @pytest.mark.parametrize("family", ["fas", "helmholtz"])
-    def test_unported_family_on_mesh_raises(self, family):
-        """No unsharded run stands in for a family the mesh does not carry;
-        the check comes before the mesh is used."""
-        problem = build_named_problem(family, 3, 5)
-        with pytest.raises(NotPortedError, match="mesh"):
-            TorchProgramGenerator(problem, device="cpu", mesh=object())
-        with pytest.raises(NotPortedError, match="mesh"):
-            TorchProgramGenerator(poisson_2d(3, 5, dtype=torch.complex128), device="cpu",
-                                  mesh=object())
-
     def test_mini_evolution_on_mesh(self, runs):
         """NSGA-II, μ = λ = 4, 2 generations through scripts/torch_optimize.py
         --mesh 1,2 --cpu --seed 3: both ranks breed the same populations, an
@@ -302,9 +287,7 @@ class TestMeshProductPath:
         assert not (out / "evolve_output_rank1").exists()
 
     @pytest.mark.parametrize("argv,message", [
-        (["--mesh", "1,2", "--multihost", "--seed", "3"], "--multihost"),
         (["--mesh", "1,2"], "--seed"),
-        (["--mesh", "1,2", "--seed", "3", "--tune"], "--tune"),
         (["--mesh", "2", "--seed", "3"], "DP,SP"),
     ])
     def test_optimize_mesh_refusals(self, argv, message, capsys):

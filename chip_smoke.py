@@ -226,6 +226,29 @@ The device mesh (parallel/mesh.py):
    slow.
    Every run launches the sweep kernel 0 times (`mesh_launches`).
 
+CUDA graphs (backend/graphs.py).  Every phase's evaluations run their
+measurement loops on CUDA graphs, the generator's default on a card (FAS,
+the mesh, the headline's staged solves and the ω tuner stay eager by rule),
+and every kernel launch count includes the replays' launches.  The main
+path checks that no capture failed and that the kernel's launches reached
+the card through replays at every grid shape; the evolve phase prints the
+captures, their share of the evolution's wall time and the bytes held.
+
+25. graphs (run after the helmholtz phase): the main path's 16 trees and
+   champion at 511² and its champion at 1023², the evolution (without
+   --tune) and the Helmholtz k = 80 rung, again with `cuda_graphs=False`:
+   ρ within 1e-6 relative (equal expected) with equal iterations, power
+   cycles and stage lengths for every tree; the champion 0.05150734633207321
+   in 10 on graphs; Helmholtz with the same probe verdict and stages and the
+   count within 2 %.  Then, in a child process, the champion through a
+   lowering whose operator reads one value to the host: a finite fitness
+   eagerly, CudaGraphError on graphs and one failed capture.  Printed, not
+   judged: ms per iteration, evaluations per hour, ms per outer iteration,
+   captures, replays, capture seconds, evictions and bytes held per mode.
+
+Every phase's seconds are printed in a `seconds` record at the end, and
+every record is also written to chiprun_out/chip_smoke_records.jsonl.
+
 Before the last line it prints the kernels as one JSON object and the card's
 `nvidia-smi` name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -247,6 +270,7 @@ import time
 import numpy as np
 import torch
 
+from evostencils_torch.backend import graphs
 from evostencils_torch.backend.device_solve import staged_solver_for_expression
 from evostencils_torch.backend.evaluation import TorchProgramGenerator
 from evostencils_torch.grammar import gp
@@ -322,11 +346,18 @@ def role(shape) -> str:
 
 
 START = time.perf_counter()
+# Every record also goes here: the end of the output that a caller sees may
+# not hold them all.
+RECORDS_FILE = os.path.join(ROOT, "chiprun_out", "chip_smoke_records.jsonl")
 
 
 def emit(record: dict) -> None:
-    """One JSON line; `t_s` is the script's wall time when it was printed."""
-    print(json.dumps({**record, "t_s": time.perf_counter() - START}), flush=True)
+    """One JSON line, also appended to RECORDS_FILE; `t_s` is the script's wall
+    time when it was printed."""
+    line = json.dumps({**record, "t_s": time.perf_counter() - START})
+    print(line, flush=True)
+    with open(RECORDS_FILE, "a") as records:
+        records.write(line + "\n")
 
 
 def median_call_ms(fn, repeats: int = 30, warmup: int = 3) -> float:
@@ -468,12 +499,14 @@ def phase_main_path(failures: list) -> tuple:
         dtype=torch.float32, iteration_limit=500, device="cuda")
     champion_1023, omegas_applied_1023 = load_champion(bench_pset(headline.problem))
 
-    rb_sweep.launches.clear()
+    expressions = [gp.compile_tree(individual, pset)[0] for individual in individuals]
+    rb_sweep.clear_counts()
+    graphs.counters.reset()
     start = time.perf_counter()
-    results = []
-    for individual in individuals:
-        expr = gp.compile_tree(individual, pset)[0]
+    results, solves = [], []
+    for expr in expressions:
         results.append(generator.generate_and_evaluate(expr, evaluation_samples=3))
+        solves.append(generator.last_cycle_solve)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - start
     t0 = time.perf_counter()
@@ -481,14 +514,22 @@ def phase_main_path(failures: list) -> tuple:
         champion, evaluation_samples=3)
     torch.cuda.synchronize()
     champ_eval_s = time.perf_counter() - t0
+    champ_solve = generator.last_cycle_solve
     t0 = time.perf_counter()
     result_1023 = headline.generate_and_evaluate(champion_1023, evaluation_samples=3)
     torch.cuda.synchronize()
     eval_1023_s = time.perf_counter() - t0
     by_shape = dict(rb_sweep.launches)
+    replayed = dict(rb_sweep.replayed)
+    graph_record = {**graphs.counters.as_dict(), "bytes_held": graphs.bytes_held(),
+                    "entries": len(generator.graph_cache) + len(headline.graph_cache),
+                    "bytes_per_entry_1023": headline.graph_cache.bytes_held
+                    / max(1, len(headline.graph_cache))}
     launches_by_role = {name: 0 for name in ROLES}
+    replayed_by_role = {name: 0 for name in ROLES}
     for shape, count in by_shape.items():
         launches_by_role[role(shape)] += count
+        replayed_by_role[role(shape)] += replayed.get(shape, 0)
 
     record = {
         "phase": "main_path",
@@ -510,10 +551,19 @@ def phase_main_path(failures: list) -> tuple:
         },
         "rb_sweep_launches": sum(by_shape.values()),
         "rb_sweep_launches_by_shape": {f"{r}x{c}": n for (r, c), n in sorted(by_shape.items())},
+        "rb_sweep_replayed_by_shape": {f"{r}x{c}": n for (r, c), n in sorted(replayed.items())},
+        "graphs": graph_record,
     }
     emit(record)
 
     check_results(failures, "tree", results)
+    # The main path runs on CUDA graphs: every kernel launch of it at every
+    # grid shape reached the card through replays too, and no capture failed.
+    for shape in by_shape:
+        if not replayed.get(shape):
+            failures.append(f"main path: no replayed kernel launch at {shape[0]}x{shape[1]}")
+    if graph_record["capture_failures"] or not graph_record["replays"]:
+        failures.append(f"main path: graphs {graph_record}")
     check_results(failures, "champion", [(champ_t, champ_rho, champ_iters), result_1023])
     for name, count in launches_by_role.items():
         if count == 0:
@@ -536,7 +586,15 @@ def phase_main_path(failures: list) -> tuple:
         failures.append(f"champion: CPU rho {cpu_rho} vs GPU {champ_rho} beyond 2 %")
     if not abs(cpu_iters - champ_iters) <= 1:
         failures.append(f"champion: CPU iterations {cpu_iters} vs GPU {champ_iters}")
-    return launches_by_role, generator, champion, champ_rho
+    graph_mode = {
+        "expressions": expressions, "results": results, "solves": solves,
+        "evals_per_hour": record["evals_per_hour"],
+        "champion": champion, "champion_result": (champ_t, champ_rho, champ_iters),
+        "champion_solve": champ_solve, "champion_1023": champion_1023,
+        "champion_1023_result": result_1023, "champion_1023_solve": headline.last_cycle_solve,
+        "replayed_by_role": replayed_by_role,
+    }
+    return launches_by_role, generator, champion, champ_rho, graph_mode
 
 
 EVOLVE_ARGS = [
@@ -546,6 +604,12 @@ EVOLVE_ARGS = [
     "--tune",
     "--output", os.path.join(ROOT, "chiprun_out", "evolve"),
 ]
+# The same evolution on eager bodies, for the graphs phase (no tuning: the
+# rate is the evolution's).
+EVOLVE_EAGER_ARGS = [a for a in EVOLVE_ARGS[:-2] if a != "--tune"] + [
+    "--output", os.path.join(ROOT, "chiprun_out", "evolve_eager")]
+# The stored champion's ρ at 511², on the card and on the CPU alike.
+CHAMPION_RHO = 0.05150734633207321
 
 
 def champion_variants(pset, n: int) -> list:
@@ -569,11 +633,17 @@ def phase_evolve(failures: list) -> dict:
     launches by grid shape during the run."""
     start = time.perf_counter()
     rb_sweep.launches.clear()
+    graphs.counters.reset()
     result = torch_optimize.run(EVOLVE_ARGS)
     torch.cuda.synchronize()
     by_shape = dict(rb_sweep.launches)
     optimizer, generator = result.optimizer, result.generator
     evaluations = optimizer._total_number_of_evaluations
+    graph_record = {**graphs.counters.as_dict(), "bytes_held": graphs.bytes_held(),
+                    "entries": len(generator.graph_cache)}
+    # Warm-ups and captures of the run (the tuner's included) over the
+    # evolution's wall time.
+    graph_record["capture_share"] = graph_record["capture_s"] / result.evolution_s
 
     individuals = [ind for hof in result.halls_of_fame for ind in hof]
     converged = [ind for ind in individuals if ind.fitness_values[1] < optimizer.infinity]
@@ -588,7 +658,10 @@ def phase_evolve(failures: list) -> dict:
         "evals_per_hour": evaluations / result.evolution_s * 3600.0,
         "vm_stats": generator.vm_stats(),
         "converged_in_hall_of_fame": len(converged),
+        "graphs": graph_record,
     }
+    if graph_record["capture_failures"]:
+        failures.append(f"evolve: graphs {graph_record}")
     if best is not None:
         expr = optimizer.compile_individual(best)[0]
         _, rho, iterations = generator.generate_and_evaluate(expr, evaluation_samples=3)
@@ -628,7 +701,7 @@ def phase_evolve(failures: list) -> dict:
         failures.append("evolve: the kernel never ran")
     record["phase_s"] = time.perf_counter() - start
     emit(record)
-    return by_shape
+    return by_shape, record
 
 
 def profile_run(evaluate, table_name: str, host_ops: bool = True) -> dict:
@@ -2238,38 +2311,214 @@ def phase_mesh(failures: list, helmholtz_k80: dict) -> int:
     return launches
 
 
+# (c) of the graphs phase, in a child process so that the failed capture
+# leaves nothing behind in this one: the champion through a lowering whose
+# operator reads one value to the host, eagerly (harmless) and on graphs
+# (must raise CudaGraphError, never score).  One JSON line.
+_GRAPH_REFUSAL = """
+import json, torch
+from evostencils_torch import CudaGraphError
+from evostencils_torch.backend import graphs
+from evostencils_torch.backend.evaluation import TorchProgramGenerator
+from evostencils_torch.problems.poisson import poisson_2d
+import chip_smoke
+
+def reading(generator):
+    apply = generator.lowering.system_apply
+    def system_apply(operator, state):
+        out = apply(operator, state)
+        float(out[0].sum())  # a host read
+        return out
+    generator.lowering.system_apply = system_apply
+    return generator
+
+problem = poisson_2d(min_level=5, max_level=9, dtype=torch.float32)
+champion = chip_smoke.load_champion(chip_smoke.bench_pset(problem))[0]
+record = {}
+for mode in (False, True):
+    generator = reading(TorchProgramGenerator(
+        problem, dtype=torch.float32, iteration_limit=500, device="cuda", cuda_graphs=mode))
+    try:
+        record[str(mode)] = {"returned": list(generator.generate_and_evaluate(
+            champion, evaluation_samples=1))}
+    except CudaGraphError as err:
+        record[str(mode)] = {"raised": type(err).__name__, "message": str(err)[:400]}
+record["counters"] = graphs.counters.as_dict()
+print(json.dumps(record), flush=True)
+"""
+
+
+def _same_fitness(graph: tuple, eager: tuple) -> bool:
+    """ρ within 1e-6 relative (equal expected) and equal iterations; the
+    same verdict on an infinite time."""
+    (t_g, rho_g, it_g), (t_e, rho_e, it_e) = graph, eager
+    return ((t_g >= 1e50) == (t_e >= 1e50) and it_g == it_e
+            and (rho_g == rho_e or abs(rho_g - rho_e) <= 1e-6 * abs(rho_e)))
+
+
+def phase_graphs(failures: list, graph_mode: dict, evolve: dict, helmholtz_k80: dict) -> None:
+    """The main path, the evolution and the Helmholtz k = 80 rung on CUDA
+    graphs (their own phases, the default) against the same runs with
+    `cuda_graphs=False`; and the refusal of a body that reads to the host."""
+    start = time.perf_counter()
+    record = {"phase": "graphs"}
+    # (a) The 16 bench trees and the champion at 511², the champion at 1023².
+    eager = TorchProgramGenerator(
+        poisson_2d(min_level=5, max_level=9, dtype=torch.float32), dtype=torch.float32,
+        iteration_limit=500, device="cuda", cuda_graphs=False)
+    eager_1023 = TorchProgramGenerator(
+        poisson_2d(min_level=6, max_level=10, dtype=torch.float32), dtype=torch.float32,
+        iteration_limit=500, device="cuda", cuda_graphs=False)
+    rng = random.Random(20260816)
+    pset = bench_pset(eager.problem)
+    for _ in range(16):
+        gp.gen_grow(pset, 2, 16, rng=rng)
+    warm = gp.gen_grow(pset, 2, 10, rng=rng)
+    eager.generate_and_evaluate(gp.compile_tree(warm, pset)[0], evaluation_samples=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results, solves = [], []
+    for expr in graph_mode["expressions"]:
+        results.append(eager.generate_and_evaluate(expr, evaluation_samples=3))
+        solves.append(eager.last_cycle_solve)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    champion = eager.generate_and_evaluate(graph_mode["champion"], evaluation_samples=3)
+    champion_solve = eager.last_cycle_solve
+    champion_1023 = eager_1023.generate_and_evaluate(
+        graph_mode["champion_1023"], evaluation_samples=3)
+    champion_1023_solve = eager_1023.last_cycle_solve
+    pairs = list(zip(graph_mode["results"] + [graph_mode["champion_result"],
+                                              graph_mode["champion_1023_result"]],
+                     results + [champion, champion_1023],
+                     graph_mode["solves"] + [graph_mode["champion_solve"],
+                                             graph_mode["champion_1023_solve"]],
+                     solves + [champion_solve, champion_1023_solve]))
+    mismatches = [i for i, (g, e, gs, es) in enumerate(pairs)
+                  if not _same_fitness(g, e) or gs != es]
+    g_champ = graph_mode["champion_result"]
+    record["bench"] = {
+        "individuals": len(pairs), "mismatches": mismatches,
+        "bitwise_equal_rho": sum(1 for g, e, _, _ in pairs if g[1] == e[1]),
+        "stage_executed_equal": sum(1 for _, _, gs, es in pairs if gs == es),
+        "evals_per_hour": {"graphs": graph_mode["evals_per_hour"],
+                           "eager": len(results) / elapsed * 3600.0},
+        "champion": {"graphs": list(g_champ), "eager": list(champion),
+                     "ms_per_iteration": {"graphs": g_champ[0] / g_champ[2],
+                                          "eager": champion[0] / champion[2]}},
+        "champion_1023": {"graphs": list(graph_mode["champion_1023_result"]),
+                          "eager": list(champion_1023)},
+    }
+    for i in mismatches:
+        g, e, gs, es = pairs[i]
+        failures.append(f"graphs: individual {i} on graphs {g} {gs}, eager {e} {es}")
+    if not (abs(g_champ[1] / CHAMPION_RHO - 1.0) <= 1e-6 and g_champ[2] == 10):
+        failures.append(f"graphs: the champion gives {g_champ[1:]} on graphs, "
+                        f"not {CHAMPION_RHO} in 10")
+
+    # The evolution on eager bodies, beside the evolve phase's on graphs
+    # (NSGA-II's time objective differs between the two, so the
+    # generations after the first may differ).
+    original = TorchProgramGenerator.__init__
+
+    def eager_init(self, *args, **kwargs):
+        kwargs.setdefault("cuda_graphs", False)
+        original(self, *args, **kwargs)
+
+    TorchProgramGenerator.__init__ = eager_init
+    try:
+        run = torch_optimize.run(EVOLVE_EAGER_ARGS)
+    finally:
+        TorchProgramGenerator.__init__ = original
+    evaluations = run.optimizer._total_number_of_evaluations
+    record["evolve"] = {
+        "graphs": {"evaluations": evolve["evaluations"], "evolution_s": evolve["evolution_s"],
+                   "evals_per_hour": evolve["evals_per_hour"], **evolve["graphs"]},
+        "eager": {"evaluations": evaluations, "evolution_s": run.evolution_s,
+                  "evals_per_hour": evaluations / run.evolution_s * 3600.0},
+    }
+    del run
+
+    # (b) Helmholtz k = 80, complex128, 127², cap 600.
+    problem = helmholtz_2d(min_level=3, max_level=7, k=80.0)
+    problem.outer_solver["max_iterations"] = LADDER_CAP
+    helmholtz = TorchProgramGenerator(problem, dtype=torch.complex128, device="cuda",
+                                      cuda_graphs=False)
+    rung = rung_record(torch_evaluate_helmholtz_ladder.evaluate_ladder(
+        helmholtz, "textbook V(2,1) ω=0.6 eager", textbook_v21(problem), 80.0, 1)[0])
+    record["helmholtz_k80"] = {"graphs": helmholtz_k80, "eager": rung}
+    g_it, e_it = helmholtz_k80["iterations"], rung["iterations"]
+    if not ((helmholtz_k80["probe"], helmholtz_k80["stages"], helmholtz_k80["converged"])
+            == (rung["probe"], rung["stages"], rung["converged"])
+            and abs(g_it - e_it) <= 0.02 * e_it):
+        failures.append(f"graphs: Helmholtz k = 80 on graphs {helmholtz_k80}, eager {rung}")
+
+    # (c) No fallback.
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _GRAPH_REFUSAL], capture_output=True,
+                          text=True, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                          timeout=600)
+    lines = [line for line in proc.stdout.splitlines() if line.startswith("{")]
+    refusal = json.loads(lines[-1]) if proc.returncode == 0 and lines else None
+    record["refusal"] = {"record": refusal, "s": time.perf_counter() - t0}
+    if refusal is None:
+        failures.append(f"graphs: the refusal check exited {proc.returncode}: "
+                        f"{(proc.stdout + proc.stderr)[-1500:]}")
+    elif not (refusal["True"].get("raised") == "CudaGraphError"
+              and "returned" in refusal["False"]
+              and refusal["counters"]["capture_failures"] == 1):
+        failures.append(f"graphs: a body that reads to the host gave {refusal}")
+    record["phase_s"] = time.perf_counter() - start
+    emit(record)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing was run",
               file=sys.stderr)
         return 2
     failures = []
-    device = phase_device()
-    kernel = phase_kernel(failures)
-    phase_levels()
-    launches_by_role, generator, champion, champion_rho = phase_main_path(failures)
-    evolve_launches = phase_evolve(failures)
-    phase_profile(generator, champion)
-    helmholtz_k80 = phase_helmholtz(failures)
-    phase_helmholtz_c64(failures)
-    cgs_launches = phase_krylov_cgs(failures)
-    phase_helmholtz_evolve(failures)
+    seconds = {}
+    os.makedirs(os.path.dirname(RECORDS_FILE), exist_ok=True)
+    open(RECORDS_FILE, "w").close()
+
+    def timed(name, phase, *args):
+        t0 = time.perf_counter()
+        try:
+            return phase(*args)
+        finally:
+            seconds[name] = time.perf_counter() - t0
+
+    device = timed("device", phase_device)
+    kernel = timed("kernel", phase_kernel, failures)
+    timed("levels", phase_levels)
+    launches_by_role, generator, champion, champion_rho, graph_mode = timed(
+        "main_path", phase_main_path, failures)
+    evolve_launches, evolve = timed("evolve", phase_evolve, failures)
+    timed("profile", phase_profile, generator, champion)
+    helmholtz_k80 = timed("helmholtz", phase_helmholtz, failures)
+    timed("graphs", phase_graphs, failures, graph_mode, evolve, helmholtz_k80)
+    replayed_by_role = graph_mode["replayed_by_role"]
+    del graph_mode
+    timed("helmholtz_c64", phase_helmholtz_c64, failures)
+    cgs_launches = timed("krylov_cgs", phase_krylov_cgs, failures)
+    timed("helmholtz_evolve", phase_helmholtz_evolve, failures)
     family_launches = {
-        "varcoeff": phase_varcoeff(failures),
-        "poisson3d": phase_poisson3d(failures),
-        "elasticity": phase_elasticity(failures),
-        "fas": phase_fas(failures),
-        "helmholtz_robin": phase_helmholtz_robin(failures),
-        "fas_evolve": phase_fas_evolve(failures),
+        name: timed(name, phase, failures) for name, phase in (
+            ("varcoeff", phase_varcoeff), ("poisson3d", phase_poisson3d),
+            ("elasticity", phase_elasticity), ("fas", phase_fas),
+            ("helmholtz_robin", phase_helmholtz_robin), ("fas_evolve", phase_fas_evolve))
     }
-    phase_profile_families(failures)
-    headline_launches = phase_headline(failures)
-    phase_models(failures, champion_rho)
-    problem_file_launches = phase_problem_file(failures)
-    family_launches["problem_file_fas"] = phase_problem_file_fas(failures)
-    scripts_launches = phase_scripts(failures)
-    dispatch_launches = phase_dispatch(failures)
-    mesh_launches = phase_mesh(failures, helmholtz_k80)
+    timed("profile_families", phase_profile_families, failures)
+    headline_launches = timed("headline", phase_headline, failures)
+    timed("models", phase_models, failures, champion_rho)
+    problem_file_launches = timed("problem_file", phase_problem_file, failures)
+    family_launches["problem_file_fas"] = timed(
+        "problem_file_fas", phase_problem_file_fas, failures)
+    scripts_launches = timed("scripts", phase_scripts, failures)
+    dispatch_launches = timed("dispatch", phase_dispatch, failures)
+    mesh_launches = timed("mesh", phase_mesh, failures, helmholtz_k80)
+    emit({"phase": "seconds", **seconds})
     if failures:
         for failure in failures:
             print(f"chip_smoke FAILED: {failure}", file=sys.stderr)
@@ -2279,7 +2528,10 @@ def main() -> int:
         kernels.append({
             "name": f"rb_sweep_f32 ({name})", "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": replaces, "shape": list(timed),
+            # Launches that reached the card on the main path, eager and
+            # through CUDA-graph replays (the replayed part beside).
             "launches": launches_by_role[name],
+            "replayed_launches": replayed_by_role[name],
             "evolve_launches": sum(n for shape, n in evolve_launches.items()
                                    if role(shape) == name),
             "krylov_cgs_launches": sum(n for shape, n in cgs_launches.items()

@@ -30,7 +30,9 @@ and owns every layer that touches arrays:
     backend/    IR -> eager torch cycle (linear, variable-coefficient and
                 nonlinear FAS operators), cycle VM, fitness evaluation
                 (single and same-structure groups, FAS, the outer-Krylov
-                solve and the k-ladder of Helmholtz)
+                solve and the k-ladder of Helmholtz), and graphs.py: the
+                measurement loops' bodies captured once in CUDA graphs and
+                replayed (the counterpart of the reference's jit)
     optimization/optimizer.py, relaxation.py: the evolutionary optimizer
                 and the ω tuners (torch.autograd, CMA-ES)
     parallel/   population dispatch: a thread pool, or a torch.distributed
@@ -77,6 +79,14 @@ class NotPortedError(Exception):
 class CudaKernelError(Exception):
     """A hand-written CUDA kernel failed to build or to launch.  Not a
     RuntimeError, for the same reason as NotPortedError."""
+
+
+class CudaGraphError(Exception):
+    """A measurement loop could not be captured in a CUDA graph
+    (backend/graphs.py): its body reads a value to the host or copies one
+    to the device.  Not a RuntimeError, for the same reason as
+    NotPortedError: an individual timed eagerly beside graph replays would
+    carry a time of another kind, so it is never scored that way."""
 
 
 def numpy_dtype(dtype) -> np.dtype:

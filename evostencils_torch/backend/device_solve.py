@@ -23,6 +23,11 @@ the host around eager torch cycles:
 
 Each inner stage stops on any of: stage-target hit, stall (no residual
 improvement across a cycle — the f32 floor), iteration cap, divergence.
+
+These solvers stay eager: the fitness's CUDA graphs (backend/graphs.py)
+cover the generator's stage, power and outer loops only, and these
+staged solvers under graphs are a later item (ROADMAP Queue 1).  Their
+device time per cycle comes from utils/timing.py's captured cycle.
 """
 
 from __future__ import annotations

@@ -29,10 +29,20 @@ shared.
 
 The generator runs on the card unless the caller asks for the CPU
 (`device="cpu"`).  The reference's device loops (`lax.while_loop`) are
-host loops here: the stage reads each cycle's residual norm back to decide
-whether to go on, and decides in the tensor's dtype as the reference does
-on the device, so the executed count and the exit reason match.  Times
-are CUDA-event spans on a GPU and `perf_counter` spans on the CPU.
+host loops here around bodies on the device: `StageLoop.cycle` (one cycle,
+its residual norm and the best-iterate update), `PowerLoop.block` (ten
+renormalised cycles and their rate) and `krylov.BicgstabLoop.iteration`
+(one outer iteration).  The host reads one value per body, the residual
+norm or the block's rate, and decides in the tensor's dtype as the
+reference does on the device, so the executed count and the exit reason
+match.  On a card each body is captured once in a CUDA graph per structure
+and replayed (backend/graphs.py, `cuda_graphs=True`, the default there):
+the counterpart of the reference's jit, so the time objective counts the
+device's work and one read per body, not the host's walk of the cycle.
+`cuda_graphs=False` runs the same bodies eagerly.  Explicit rules keep
+these eager: the CPU (no graphs), a device mesh (its transfers cannot be
+captured) and FAS (its own path, as in the reference).  Times are
+CUDA-event spans on a GPU and `perf_counter` spans on the CPU.
 
 `TorchProgramGenerator(problem, mesh=...)` evaluates on a (dp, sp) device
 mesh (parallel/mesh.py), one process per rank, every rank of an `sp` group
@@ -62,6 +72,7 @@ import numpy as np
 import torch
 
 from evostencils_torch import dtype_is_64bit, dtype_is_complex, numpy_dtype
+from evostencils_torch.backend import graphs
 from evostencils_torch.backend.lowering import CycleLowering
 from evostencils_torch.backend.vm import CycleVM, Program
 from evostencils_torch.ir import base, system
@@ -93,6 +104,128 @@ def _host_norm(state) -> float:
     return math.sqrt(sum(float(np.sum(np.abs(x) ** 2)) for x in state))
 
 
+def _omega_values(omega_arg) -> np.ndarray:
+    """The float32 ω of a VM Program or of a lowered step's ω vector."""
+    if isinstance(omega_arg, Program):
+        return np.asarray(omega_arg.omegas[:omega_arg.length], dtype=np.float32)
+    return np.asarray(omega_arg, dtype=np.float32)
+
+
+def _structure(omega_arg):
+    """What a solver's captured graphs depend on beyond its own key: the
+    opcodes of a VM program (the reference's ω-free key); nothing for a
+    lowered step, whose solver key is already structural."""
+    if isinstance(omega_arg, Program):
+        return omega_arg.opcodes[:omega_arg.length].tobytes()
+    return None
+
+
+class _OmegaStep:
+    """step(u, f, ω argument) bound to a static float32 ω tensor on the
+    device: the argument the step gets is `omega_arg`'s structure with the
+    static tensor for its ω, which `load` fills before a run."""
+
+    def __init__(self, step, omega_arg, device):
+        self.step = step
+        self.omegas = torch.zeros(len(_omega_values(omega_arg)), dtype=torch.float32,
+                                  device=device)
+        self.arg = (omega_arg._replace(omegas=self.omegas)
+                    if isinstance(omega_arg, Program) else self.omegas)
+
+    def __call__(self, u, f):
+        return self.step(u, f, self.arg)
+
+    def load(self, omega_arg) -> None:
+        self.omegas.copy_(torch.from_numpy(_omega_values(omega_arg)))
+
+
+def _real_scalar(like) -> torch.Tensor:
+    """A 0-d zero of the state's real dtype on its device."""
+    return torch.zeros((), dtype=like.real.dtype, device=like.device)
+
+
+class StageLoop(graphs.Loop):
+    """The body of the reference's `stage_raw` on static buffers: `start`
+    takes the residual norm of the loaded state; `cycle` runs one cycle,
+    its residual norm and the best-iterate update (`torch.where` into
+    `best_u`, `best_res`, `best_it`), as the reference's `while_loop` body
+    does on the device."""
+
+    bodies = ("start", "cycle")
+
+    def __init__(self, step: _OmegaStep, residual_norm, like):
+        super().__init__()
+        self.step, self.residual_norm = step, residual_norm
+        self.u, self.rhs, self.best_u = (sops.zeros_like_state(like) for _ in range(3))
+        self.res, self.best_res = _real_scalar(like[0]), _real_scalar(like[0])
+        self.it, self.best_it = (torch.zeros((), dtype=torch.int32, device=like[0].device)
+                                 for _ in range(2))
+
+    def load(self, u0, rhs, omega_arg) -> None:
+        for dst, src in ((self.u, u0), (self.rhs, rhs)):
+            for d, x in zip(dst, src):
+                d.copy_(x)
+        self.step.load(omega_arg)
+
+    def start(self) -> None:
+        res0 = self.residual_norm(self.u, self.rhs)
+        self.res.copy_(res0)
+        self.best_res.copy_(res0)
+        self.it.zero_()
+        self.best_it.zero_()
+        for b, x in zip(self.best_u, self.u):
+            b.copy_(x)
+
+    def cycle(self) -> None:
+        u = self.step(self.u, self.rhs)
+        res = self.residual_norm(u, self.rhs)
+        self.it.add_(1)
+        improved = res < self.best_res
+        self.best_it.copy_(torch.where(improved, self.it, self.best_it))
+        for b, x in zip(self.best_u, u):
+            b.copy_(torch.where(improved, x, b))
+        self.best_res.copy_(torch.where(improved, res, self.best_res))
+        for d, x in zip(self.u, u):
+            d.copy_(x)
+        self.res.copy_(res)
+
+
+class PowerLoop(graphs.Loop):
+    """One block of the reference's `power_raw` on static buffers: ten
+    cycles on the error with f ≡ 0, renormalised every cycle, and the
+    block's per-cycle rate from the accumulated log-norms (a block rate of
+    ρ^10 underflows float32 for very fast cycles)."""
+
+    bodies = ("block",)
+    BLOCK_LEN = 10
+
+    def __init__(self, step: _OmegaStep, norm, like):
+        super().__init__()
+        self.step, self.norm = step, norm
+        self.e, self.zf = sops.zeros_like_state(like), sops.zeros_like_state(like)
+        self.rate = _real_scalar(like[0])
+
+    def load(self, e0, zf, omega_arg) -> None:
+        for dst, src in ((self.e, e0), (self.zf, zf)):
+            for d, x in zip(dst, src):
+                d.copy_(x)
+        self.step.load(omega_arg)
+
+    def block(self) -> None:
+        e, log_acc = tuple(self.e), None
+        for _ in range(self.BLOCK_LEN):
+            e = self.step(e, self.zf)
+            n = self.norm(e)
+            tiny = torch.finfo(n.dtype).tiny
+            safe = torch.where(n > 0, n, 1.0)
+            e = tuple(x / safe for x in e)
+            log_n = torch.log(torch.where(n > 0, n, tiny))
+            log_acc = log_n if log_acc is None else log_acc + log_n
+        for d, x in zip(self.e, e):
+            d.copy_(x)
+        self.rate.copy_(torch.exp(log_acc / self.BLOCK_LEN))
+
+
 class TorchProgramGenerator:
     """Evaluate evolved cycles with torch on `device` (the card by default).
 
@@ -114,9 +247,20 @@ class TorchProgramGenerator:
         ladder_rungs: int = 3,
         mesh=None,
         replicate_below: int = 64,
+        cuda_graphs: Optional[bool] = None,
     ):
         self.problem = problem
         self.device = torch.device(device)
+        # The measurement loops' bodies run from CUDA graphs, captured once
+        # per structure (the default on a card without a mesh), or eagerly.
+        if cuda_graphs is None:
+            cuda_graphs = self.device.type == "cuda" and mesh is None
+        if cuda_graphs and self.device.type != "cuda":
+            raise ValueError(f"cuda_graphs: no CUDA graphs on {self.device}")
+        if cuda_graphs and mesh is not None:
+            raise ValueError("cuda_graphs: a device mesh runs eagerly (its transfers "
+                             "between ranks cannot be captured)")
+        self.graph_cache = graphs.GraphCache() if cuda_graphs else None
         # Rungs of the k-ladder per Helmholtz fitness (k, 2k, 4k).  One
         # rung during evolution keeps the selection pressure on the base
         # k; champions are then validated on the full ladder
@@ -165,6 +309,10 @@ class TorchProgramGenerator:
         # iterate, or "unused": it reduced nothing), its iterations and the
         # number of full-cap stages that ran.
         self.last_outer_solve = None
+        # What the last cycle evaluation ran: the power iteration's cycles
+        # and the cycles each stage solve executed (the timed solve's first
+        # run included, its timing samples not).
+        self.last_cycle_solve = None
 
     def vm_stats(self) -> dict:
         total = self.vm_hits + self.vm_misses
@@ -251,6 +399,8 @@ class TorchProgramGenerator:
         self.problem = self.problem.with_levels(min_level, max_level)
         self._solver_cache.clear()
         self._vms.clear()
+        if self.graph_cache is not None:
+            self.graph_cache.clear()
 
     def generate_cycle_function(self, expression, storages=None, min_level=None,
                                 max_level=None, use_global_weights=False):
@@ -307,9 +457,8 @@ class TorchProgramGenerator:
                 key = ("__vm__", self._param_sig, self._expression_level(expression))
                 if key not in self._solver_cache:
                     operator = self._finest_operator_for(expression)
-                    self._solver_cache[key] = self._stage_power_fns(vm.make_step(), operator) + (
-                        operator,
-                    )
+                    self._solver_cache[key] = self._stage_power_fns(
+                        vm.make_step(), operator, key) + (operator,)
                 return self._solver_cache[key], program
             self.vm_misses += 1
             omega_values = self._omega_vector(expression)
@@ -317,7 +466,8 @@ class TorchProgramGenerator:
             if key not in self._solver_cache:
                 step = self.lowering.lower_parameterized(expression)[0]
                 operator = self._finest_operator_for(expression)
-                self._solver_cache[key] = self._stage_power_fns(step, operator) + (operator,)
+                self._solver_cache[key] = self._stage_power_fns(step, operator, key) + (
+                    operator,)
             return self._solver_cache[key], omega_values
 
     def _structural_key(self, expression, prefix: str = "solve"):
@@ -331,10 +481,19 @@ class TorchProgramGenerator:
             [float(c.relaxation_factor) for c in collect_cycles(expression)], dtype=np.float32
         )
 
-    def _stage_power_fns(self, step, operator):
+    def _loop(self, key, omega_arg, make, eager: bool = False):
+        """The measurement loop for this solver key and the structure of
+        `omega_arg`: make() captured and cached when the generator runs on
+        CUDA graphs, else (or when `eager`) a new one that runs eagerly."""
+        if self.graph_cache is None or eager:
+            return make()
+        return self.graph_cache.get(key + (_structure(omega_arg),), make)
+
+    def _stage_power_fns(self, step, operator, key):
         """The two measurement loops around step(u, f, omega_arg): the
         residual-driven stage solve and the error-propagation power
-        iteration."""
+        iteration; `key` is the solver's, under which their graphs are
+        kept."""
         lowering = self.lowering
         cap = self.iteration_limit
         np_dt = self._np_real
@@ -347,6 +506,8 @@ class TorchProgramGenerator:
         # Stall patience: at the f32 residual floor the best point so far
         # defines the stage's reduction.
         patience = 5
+        # FAS has its own path, as in the reference: it stays eager.
+        eager = self.uses_FAS()
 
         # The finest grid's slab on a mesh: its norms are all-reduced, so
         # every rank reads the same value and takes the same branch.
@@ -355,55 +516,54 @@ class TorchProgramGenerator:
         def residual_norm(u, f):
             return sops.l2_norm(sops.tree_sub(f, lowering.system_apply(operator, u)), slab)
 
-        def stage(u0, rhs, omegas):
+        def norm(e):
+            return sops.l2_norm(e, slab)
+
+        def stage(u0, rhs, omega_arg):
             """(best_res, res0, best_it, best_u, executed); the exit test is
-            the reference's device test, evaluated in the tensor's dtype."""
-            res0 = np_dt(residual_norm(u0, rhs).item())
-            u, res, it, best_res, best_it, best_u = u0, res0, 0, res0, 0, u0
-            while (
-                it < cap
-                and res > target * res0
-                and res < divergence * res0
-                and np.isfinite(res)
-                and (it < 25 or res < grace * res0 * rho_required ** np_dt(it))
-                and it - best_it < patience
-            ):
-                u = step(u, rhs, omegas)
-                res = np_dt(residual_norm(u, rhs).item())
-                it += 1
-                if res < best_res:
-                    best_it, best_u, best_res = it, u, res
-            return best_res, res0, best_it, best_u, it
+            the reference's device test, evaluated in the tensor's dtype on
+            one residual norm read back per cycle.  best_u is a copy."""
+            loop = self._loop(key + ("stage",), omega_arg, lambda: StageLoop(
+                _OmegaStep(step, omega_arg, self.device), residual_norm, u0), eager)
+            with loop.lock:
+                loop.load(u0, rhs, omega_arg)
+                loop.run("start")
+                res0 = np_dt(loop.res.item())
+                res, it, best_res, best_it = res0, 0, res0, 0
+                while (
+                    it < cap
+                    and res > target * res0
+                    and res < divergence * res0
+                    and np.isfinite(res)
+                    and (it < 25 or res < grace * res0 * rho_required ** np_dt(it))
+                    and it - best_it < patience
+                ):
+                    loop.run("cycle")
+                    res = np_dt(loop.res.item())
+                    it += 1
+                    if res < best_res:
+                        best_it, best_res = it, res
+                return (np_dt(loop.best_res.item()), res0, int(loop.best_it.item()),
+                        tuple(x.clone() for x in loop.best_u), it)
 
-        block_len = 10
-
-        def one_block(e, zf, omegas):
-            # Renormalise every cycle and accumulate log-norms: a block
-            # rate of ρ^10 underflows f32 for very fast cycles.
-            log_acc = None
-            for _ in range(block_len):
-                e = step(e, zf, omegas)
-                n = sops.l2_norm(e, slab)
-                tiny = torch.finfo(n.dtype).tiny
-                safe = torch.where(n > 0, n, 1.0)
-                e = tuple(x / safe for x in e)
-                log_n = torch.log(torch.where(n > 0, n, tiny))
-                log_acc = log_n if log_acc is None else log_acc + log_n
-            return e, np_dt(torch.exp(log_acc / block_len).item())
-
-        def power(e0, zf, omegas):
+        def power(e0, zf, omega_arg):
             """(rate, cycles): blocks until the per-cycle rate settles."""
-            e, rate = one_block(e0, zf, omegas)
-            prev_rate, k = np_dt(0.0), 1
-            while (
-                k < 8
-                and (k < 3 or abs(rate - prev_rate) > np_dt(0.02) * abs(rate))
-                and rate < 2.0
-                and np.isfinite(rate)
-            ):
-                e, new_rate = one_block(e, zf, omegas)
-                prev_rate, rate, k = rate, new_rate, k + 1
-            return rate, k * block_len
+            loop = self._loop(key + ("power",), omega_arg, lambda: PowerLoop(
+                _OmegaStep(step, omega_arg, self.device), norm, e0), eager)
+            with loop.lock:
+                loop.load(e0, zf, omega_arg)
+                loop.run("block")
+                rate = np_dt(loop.rate.item())
+                prev_rate, k = np_dt(0.0), 1
+                while (
+                    k < 8
+                    and (k < 3 or abs(rate - prev_rate) > np_dt(0.02) * abs(rate))
+                    and rate < 2.0
+                    and np.isfinite(rate)
+                ):
+                    loop.run("block")
+                    prev_rate, rate, k = rate, np_dt(loop.rate.item()), k + 1
+            return rate, k * PowerLoop.BLOCK_LEN
 
         return stage, power
 
@@ -496,8 +656,11 @@ class TorchProgramGenerator:
     def _time_per_iteration_ms(self, stage_solve, u0, f, omegas, evaluation_samples) -> float:
         """Median time of the stage solve over `evaluation_samples` runs,
         per cycle its first run executed."""
-        executed = max(1, stage_solve(u0, f, omegas)[4])
-        return 1e3 * self._median_time(stage_solve, (u0, f, omegas), evaluation_samples) / executed
+        executed = stage_solve(u0, f, omegas)[4]
+        if self.last_cycle_solve is not None:
+            self.last_cycle_solve["stage_executed"].append(executed)
+        return (1e3 * self._median_time(stage_solve, (u0, f, omegas), evaluation_samples)
+                / max(1, executed))
 
     # ---- core evaluation ----
 
@@ -559,6 +722,7 @@ class TorchProgramGenerator:
             return infinity, infinity, infinity
 
     def _generate_and_evaluate_cycle(self, expression, infinity, evaluation_samples):
+        record = self.last_cycle_solve = {"power_cycles": 0, "stage_executed": []}
         try:
             (stage_solve, power_solve, operator), omegas = self._build_solver(expression)
             u0, f, e0, zf = self._probe_state(expression)
@@ -566,7 +730,7 @@ class TorchProgramGenerator:
             linear = not self.uses_FAS()
             if linear and not dtype_is_64bit(self.dtype):
                 # ρ by power iteration on the error-propagation operator.
-                rate, _ = power_solve(e0, zf, omegas)
+                rate, record["power_cycles"] = power_solve(e0, zf, omegas)
                 self._consecutive_device_failures = 0
                 rho, iterations, result = self._power_verdict(float(rate), infinity)
                 if result is not None:
@@ -588,6 +752,7 @@ class TorchProgramGenerator:
             stage1_executed = 1
             for stage_index in range(3):
                 best_res, res0, best_it, best_u, stage_executed = stage_solve(u0, rhs, omegas)
+                record["stage_executed"].append(stage_executed)
                 self._consecutive_device_failures = 0
                 if stage_index == 0:
                     stage1_executed = max(1, stage_executed)
@@ -649,11 +814,13 @@ class TorchProgramGenerator:
         )
         return system.Operator("A_outer", [[outer_entry]])
 
-    def _outer_solve_raw(self, step, outer_operator, max_iterations):
+    def _outer_solve_raw(self, step, outer_operator, max_iterations, key=("outer",)):
         """solve(f, omegas) -> (x, res, res0, iterations): BiCGStab on the
         outer operator from a zero guess, one cycle on (0, ·) as the
         preconditioner; on a mesh every inner product and norm is summed
-        over the finest grid's slabs."""
+        over the finest grid's slabs.  Its iteration's graphs are kept under
+        `key` and the cycle's structure: the probe and the full solve of
+        one cycle share them."""
         lowering = self.lowering
         slab = lowering._slab(outer_operator.grid[0])
         target = self.problem.outer_solver["target_reduction"]
@@ -667,13 +834,23 @@ class TorchProgramGenerator:
         def apply_a(state):
             return lowering.system_apply(outer_operator, state)
 
-        def solve(f, omegas):
-            def apply_m(state):
-                return step(sops.zeros_like_state(state), state, omegas)
+        def make(f, omega_arg):
+            cycle = _OmegaStep(step, omega_arg, self.device)
 
-            x, it, res = krylov.preconditioned_bicgstab(
-                apply_a, apply_m, f, max_iterations, target, slab=slab)
-            return x, res, float(sops.l2_norm(f, slab)), it
+            def apply_m(state):
+                return cycle(sops.zeros_like_state(state), state)
+
+            loop = krylov.BicgstabLoop(apply_a, apply_m, f, slab)
+            loop.cycle = cycle
+            return loop
+
+        def solve(f, omega_arg):
+            res0 = float(sops.l2_norm(f, slab))
+            loop = self._loop(key + ("bicgstab",), omega_arg, lambda: make(f, omega_arg))
+            with loop.lock:
+                loop.cycle.load(omega_arg)
+                x, it, res = loop.solve(f, max_iterations, target)
+            return x, res, res0, it
 
         return solve
 
@@ -693,21 +870,23 @@ class TorchProgramGenerator:
             if program is not None:
                 if probe_iterations is None:
                     self.vm_hits += 1
-                key = ("__vm__", self._param_sig, self._expression_level(expression), tag)
+                base_key = ("__vm__", self._param_sig, self._expression_level(expression))
                 omega_arg, make_step = program, vm.make_step
             else:
                 if probe_iterations is None:
                     self.vm_misses += 1
-                key = self._structural_key(expression, tag)
+                base_key = self._structural_key(expression, "outer")
                 omega_arg = self._omega_vector(expression)
 
                 def make_step():
                     return self.lowering.lower_parameterized(expression)[0]
 
+            key = base_key + (tag,)
             if key not in self._solver_cache:
                 outer_operator = self._outer_operator_for(expression)
                 self._solver_cache[key] = (
-                    self._outer_solve_raw(make_step(), outer_operator, max_iterations),
+                    self._outer_solve_raw(
+                        make_step(), outer_operator, max_iterations, base_key + ("outer",)),
                     outer_operator,
                 )
             return self._solver_cache[key], omega_arg

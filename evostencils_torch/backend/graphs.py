@@ -1,0 +1,278 @@
+"""CUDA graphs for the measurement loops: the counterpart of the JAX
+package's compiled measurement functions.
+
+The reference never runs a cycle op by op.  Its cycle VM is one executable
+with the program passed in as data (evostencils_tpu/backend/vm.py), and its
+stage solve, power iteration and outer BiCGStab solve are `lax.while_loop`s
+on the device (evostencils_tpu/backend/evaluation.py `stage_raw`,
+`power_raw`, `solve_raw`), each one dispatch that `block_until_ready` times.
+Eager torch launches every op from the host, so a loop of eager cycles times
+the host's walk.  Here each loop's body is captured once in a CUDA graph and
+replayed:
+
+  * one stage cycle with its residual norm and the best-iterate update,
+  * one power block of ten renormalised cycles and its rate,
+  * one outer BiCGStab iteration, with its two preconditioner cycles.
+
+The host keeps each loop's control and reads one value per body (a residual
+norm or a block rate), which the reference's `while_loop` condition reads on
+the device: the same test on the same values, so iteration counts, exit
+reasons and best iterates are the eager loop's.
+
+A `Loop` holds static buffers and its bodies, methods that read and write
+only those buffers.  `run(name)` calls a body eagerly, or replays its graph
+once the loop is captured.  Inputs are filled with `copy_` before a replay,
+and anything kept from a replay is copied out before the next one.
+`GraphCache` keeps captured loops by structural key (for the VM the opcode
+sequence: the reference's ω-free key) under a bound on the bytes their
+graphs and buffers hold, evicting the least recently used.
+
+A capture that fails raises `CudaGraphError`.  It never runs eagerly in its
+place: an eager time beside graph times would corrupt the time objective of
+a population.  Captures run one at a time under one lock, in the
+`thread_local` error mode, so that a thread pool's other thread may go on
+launching eagerly meanwhile.
+"""
+
+from __future__ import annotations
+
+import collections
+import gc
+import threading
+import time
+import weakref
+
+import torch
+
+from evostencils_torch import CudaGraphError
+from evostencils_torch.ops import rb_sweep
+
+# One capture at a time in the process: the warm-ups, the capture stream
+# and the allocator's pools are shared.
+_capture_lock = threading.RLock()
+
+# Largest bytes one GraphCache holds before it evicts.  An entry held 65 MB
+# at 1023² and 37-59 MB at 511² on average (chip_smoke.py's main path and
+# evolve phases on an H100): 8 GiB keeps about 130 entries at 1023² and
+# 150-230 at 511², a tenth of an 80 GB card.
+DEFAULT_MAX_BYTES = 8 << 30
+
+
+class Counters:
+    """What the process's graphs did since the last reset(): captures,
+    failed captures, replays, seconds spent warming up and capturing, and
+    entries evicted from a GraphCache."""
+
+    FIELDS = ("captures", "capture_failures", "replays", "capture_s", "evictions")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.reset()
+
+    def reset(self) -> None:
+        with self._lock:
+            for name in self.FIELDS:
+                setattr(self, name, 0)
+            self.capture_s = 0.0
+
+    def add(self, name: str, value=1) -> None:
+        with self._lock:
+            setattr(self, name, getattr(self, name) + value)
+
+    def as_dict(self) -> dict:
+        with self._lock:
+            return {name: getattr(self, name) for name in self.FIELDS}
+
+
+counters = Counters()
+_caches = weakref.WeakSet()
+
+
+def bytes_held() -> int:
+    """Bytes every live GraphCache of the process holds."""
+    return sum(cache.bytes_held for cache in list(_caches))
+
+
+class Graph:
+    """A captured CUDA graph.  `replay()` launches it and counts the replay
+    and the sweep kernel's launches the capture recorded, by grid shape
+    (ops/rb_sweep.py: the counter holds launches that reached the device)."""
+
+    def __init__(self, cuda_graph, launches: collections.Counter):
+        self._graph = cuda_graph
+        self.launches = launches
+
+    def replay(self) -> None:
+        self._graph.replay()
+        counters.add("replays")
+        if self.launches:
+            rb_sweep.count_replay(self.launches)
+
+
+# One capture stream per device, as torch.cuda.graph keeps one.
+_capture_streams = {}
+
+
+def capture(fn, warmup: int = 1, pool=None):
+    """fn() captured once in a CUDA graph: `warmup` eager calls on a side
+    stream first, which build every cache fn keeps on the device (masks,
+    inverses, coefficient planes, ω tensors, library handles), then the
+    capture on a stream of its own, into `pool` when one is given.  Returns
+    (Graph, what the captured call returned).
+
+    The capture is torch.cuda.graph's (capture_begin and capture_end on a
+    side stream after a synchronise) without its empty_cache(), which would
+    hand every cached block of the allocator back to CUDA at each
+    capture, and the evaluations after it would allocate them anew.
+
+    An error in the warm-up is fn's own and propagates as it is.  An error
+    in the capture (a host read or a host-to-device copy inside fn) raises
+    CudaGraphError."""
+    device = torch.cuda.current_device()
+    with _capture_lock:
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(device=device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(warmup):
+                fn()
+        torch.cuda.synchronize(device)
+        if device not in _capture_streams:
+            _capture_streams[device] = torch.cuda.Stream(device=device)
+        stream = _capture_streams[device]
+        graph = torch.cuda.CUDAGraph()
+        # A cyclic collection inside the capture may free another graph (a
+        # generator's cache that was dropped) on this thread, which the
+        # capture forbids: it would fail this capture.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with rb_sweep.recording_launches() as recorded, torch.cuda.stream(stream):
+                graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+                try:
+                    out = fn()
+                finally:
+                    graph.capture_end()
+        except torch.cuda.OutOfMemoryError:
+            raise
+        except Exception as err:
+            counters.add("capture_failures")
+            raise CudaGraphError(
+                "the loop body cannot be captured in a CUDA graph (a host read or a "
+                f"host-to-device copy inside it?): {err}") from err
+        finally:
+            if collecting:
+                gc.enable()
+        counters.add("captures")
+        counters.add("capture_s", time.perf_counter() - t0)
+    return Graph(graph, recorded), out
+
+
+def _tensors(value):
+    if torch.is_tensor(value):
+        yield value
+    elif isinstance(value, (tuple, list)):
+        for item in value:
+            yield from _tensors(item)
+
+
+class Loop:
+    """Static buffers and the bodies that work on them.
+
+    A subclass names its bodies in `bodies` (methods without arguments
+    that read and write only the loop's tensors) and keeps its host logic
+    in methods that call `run(name)`.  Eager until `capture_bodies()`; from
+    then on `run` replays.  `lock` serialises the host logic of threads
+    that share a cached loop."""
+
+    bodies: tuple = ()
+
+    def __init__(self):
+        self._graphs = None
+        self.lock = threading.Lock()
+        self.nbytes = 0
+
+    def run(self, name: str) -> None:
+        if self._graphs is None:
+            getattr(self, name)()
+        else:
+            self._graphs[name].replay()
+
+    def capture_bodies(self) -> None:
+        """Every body captured into one private pool.  The loop replays its
+        graphs one after another on one stream and never two at once, and
+        its bodies write only into its static buffers, so they share the
+        pool.  `nbytes`: the pool's segments and the static buffers."""
+        pool = torch.cuda.graph_pool_handle()
+        graphs = {name: capture(getattr(self, name), pool=pool)[0] for name in self.bodies}
+        self._graphs = graphs
+        pool_bytes = sum(segment["total_size"] for segment in torch.cuda.memory_snapshot()
+                         if tuple(segment["segment_pool_id"]) == tuple(pool))
+        static = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                  for value in vars(self).values() for t in _tensors(value)}
+        self.nbytes = pool_bytes + sum(static.values())
+
+
+class GraphCache:
+    """Captured loops by key, least recently used first out once the
+    entries hold more than `max_bytes` (the newest entry always stays).
+    An evicted loop's graphs and buffers are dropped and the allocator's
+    cached blocks released; a thread still inside it keeps it alive until
+    it returns."""
+
+    def __init__(self, max_bytes: int = DEFAULT_MAX_BYTES):
+        self.max_bytes = max_bytes
+        self._entries = collections.OrderedDict()
+        self._lock = threading.Lock()
+        self.bytes_held = 0
+        _caches.add(self)
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def _lookup(self, key):
+        with self._lock:
+            loop = self._entries.get(key)
+            if loop is not None:
+                self._entries.move_to_end(key)
+            return loop
+
+    def get(self, key, make) -> Loop:
+        """The loop cached under `key`, or make() captured and cached."""
+        loop = self._lookup(key)
+        if loop is not None:
+            return loop
+        with _capture_lock:
+            loop = self._lookup(key)
+            if loop is not None:
+                return loop
+            loop = make()
+            self._capture(loop)
+            with self._lock:
+                self._entries[key] = loop
+                self.bytes_held += loop.nbytes
+                evicted = self._evict()
+            if evicted:
+                del evicted
+                self._release()
+        return loop
+
+    def _capture(self, loop: Loop) -> None:
+        loop.capture_bodies()
+
+    def _release(self) -> None:
+        torch.cuda.empty_cache()
+
+    def _evict(self) -> list:
+        evicted = []
+        while self.bytes_held > self.max_bytes and len(self._entries) > 1:
+            _, loop = self._entries.popitem(last=False)
+            self.bytes_held -= loop.nbytes
+            evicted.append(loop)
+            counters.add("evictions")
+        return evicted
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            self.bytes_held = 0

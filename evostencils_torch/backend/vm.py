@@ -17,9 +17,14 @@ ISA (branches are enumerated per level with the operators baked in):
 
 Registration and translation are the reference's, so both VMs number the
 same branches alike.  The reference runs the program inside one compiled
-`lax.switch` interpreter to avoid XLA compiles; eager torch has none, so
-`make_step` is a Python loop over the branches, and programs need no
-padding.  ω stays float32 as in the reference, so it is rounded alike.
+`lax.switch` interpreter with the program passed in as data; here
+`make_step` is a Python loop over the branches (programs need no padding),
+and a CUDA graph captured from it takes the place of the compiled
+interpreter (backend/graphs.py).  ω is one float32 tensor on the device
+per program, and each instruction reads its 0-d view, so a graph holds no
+ω of its own: one graph serves every program with the same opcodes, ω
+mutations and same-structure groups included.  ω stays float32 as in the
+reference, so it is rounded alike.
 
 `include_block_smoothers=False` is the reference's slim ISA, which it
 builds for outer-Krylov (Helmholtz) problems to keep its compiled
@@ -47,8 +52,16 @@ from evostencils_torch.ops import stencil_ops as sops
 
 class Program(NamedTuple):
     opcodes: np.ndarray  # int32[length]
-    omegas: np.ndarray  # float32[length]
+    omegas: np.ndarray  # float32[length]; or a float32 tensor on the device
     length: int
+
+
+def device_omegas(program: Program, device) -> torch.Tensor:
+    """The program's ω as one float32 tensor on `device`: the tensor
+    itself when it already is one, else the numpy vector carried across."""
+    if torch.is_tensor(program.omegas):
+        return program.omegas
+    return torch.from_numpy(np.ascontiguousarray(program.omegas, dtype=np.float32)).to(device)
 
 
 class _NotTranslatable(Exception):
@@ -321,7 +334,12 @@ class CycleVM:
 
     def make_step(self):
         """step(u_fields, f_fields, program) -> u_fields at the finest
-        level, with the same call shape as the lowered step."""
+        level, with the same call shape as the lowered step.  Instruction i
+        reads ω as the 0-d view omegas[i] of `device_omegas(program)`; a
+        numpy ω vector costs one host-to-device copy per call, so a caller
+        that captures the step passes a program whose ω is a device tensor.
+        The coarse levels start as zeros made inside the step, so a graph
+        captured from it zeroes them at every replay."""
         branches = self._branches
         shapes = self._shapes
         lowering = self.lowering
@@ -336,9 +354,9 @@ class CycleVM:
             u_all = (tuple(u),) + tuple(zeros(i) for i in range(1, len(shapes)))
             f_all = (tuple(f),) + tuple(zeros(i) for i in range(1, len(shapes)))
             state = (u_all, f_all)
-            n = program.length
-            for op, omega in zip(program.opcodes[:n].tolist(), program.omegas[:n].tolist()):
-                state = branches[op](state, omega)
+            omegas = device_omegas(program, lowering.device)
+            for i, op in enumerate(program.opcodes[:program.length].tolist()):
+                state = branches[op](state, omegas[i])
             return state[0][0]
 
         step.layout = lowering.layout

@@ -8,7 +8,10 @@ reference's `lax.fori_loop`) and never read a value back to the host.
 the evolved multigrid cycle of the Helmholtz configuration, and stops on
 its residual: the reference's `lax.while_loop` is a host loop here that
 reads the residual norm once per iteration, so the iteration count, which
-is the fitness, is decided by the same test on the same values.
+is the fitness, is decided by the same test on the same values.  Its body
+is `BicgstabLoop.iteration`: one outer iteration on static buffers, with
+the scalars and the best-iterate update on the device, which the fitness
+captures once in a CUDA graph and replays (backend/graphs.py).
 
 Plain torch: the reductions and updates are library calls, as the
 reference left them to XLA.  With a `slab` (a state split by rows over a
@@ -24,6 +27,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from evostencils_torch.backend import graphs
 from evostencils_torch.ops.stencil_ops import dot, tree_add, tree_scale, tree_sub, zeros_like_state
 
 State = Sequence[torch.Tensor]
@@ -99,12 +103,99 @@ def bicgstab(apply_a: Callable, rhs: State, iterations: int, slab=None) -> State
     return x
 
 
-def _residual_norm(r: State, slab=None):
-    """‖r‖ read back to the host as a numpy scalar of the state's real
-    dtype, so the stopping test rounds as the reference's does on the
-    device (float32 for float32 and complex64 states)."""
-    norm = torch.sqrt(torch.real(dot(r, r, slab)))
+def _residual_norm(r: State, slab=None) -> torch.Tensor:
+    """‖r‖ as a 0-d tensor of the state's real dtype."""
+    return torch.sqrt(torch.real(dot(r, r, slab)))
+
+
+def _host_scalar(norm: torch.Tensor):
+    """A norm read back to the host as a numpy scalar of its dtype, so the
+    stopping test rounds as the reference's does on the device (float32
+    for float32 and complex64 states)."""
     return (np.float64 if norm.dtype == torch.float64 else np.float32)(norm.item())
+
+
+class BicgstabLoop(graphs.Loop):
+    """Right-preconditioned BiCGStab on static buffers shaped like `like`.
+
+    `start` sets up the recurrence from the right-hand side in `rhs`;
+    `iteration` is one outer iteration (two preconditioner and two operator
+    applications, the inner products and updates, the residual norm and the
+    reference's best-iterate update, all on the device).  `solve` is the
+    host loop around them."""
+
+    bodies = ("start", "iteration")
+
+    def __init__(self, apply_a: Callable, apply_m: Callable, like: State, slab=None):
+        super().__init__()
+        self.apply_a, self.apply_m, self.slab = apply_a, apply_m, slab
+        self.rhs, self.x, self.r, self.p, self.best_x = (
+            zeros_like_state(like) for _ in range(5))
+        self.rho = torch.zeros((), dtype=like[0].dtype, device=like[0].device)
+        self.res = torch.real(self.rho).clone()
+        self.best_res = self.res.clone()
+
+    def start(self) -> None:
+        for x, b in zip(self.x, self.best_x):
+            x.zero_()
+            b.zero_()
+        for dst in (self.r, self.p):
+            for d, f in zip(dst, self.rhs):
+                d.copy_(f)
+        self.rho.copy_(dot(self.rhs, self.r, self.slab))
+        res = _residual_norm(self.r, self.slab)
+        self.res.copy_(res)
+        self.best_res.copy_(res)
+
+    def iteration(self) -> None:
+        # The shadow residual r̂ is r0, the right-hand side.
+        slab, r_hat, p, rho = self.slab, self.rhs, self.p, self.rho
+        p_hat = self.apply_m(p)
+        v = self.apply_a(p_hat)
+        alpha = _safe_div(rho, dot(r_hat, v, slab))
+        s = tree_sub(self.r, tree_scale(alpha, v))
+        s_hat = self.apply_m(s)
+        t = self.apply_a(s_hat)
+        omega = _safe_div(dot(t, s, slab), dot(t, t, slab))
+        x = tree_add(self.x, tree_add(tree_scale(alpha, p_hat), tree_scale(omega, s_hat)))
+        r = tree_sub(s, tree_scale(omega, t))
+        rho_new = dot(r_hat, r, slab)
+        beta = _safe_div(rho_new * alpha, rho * omega)
+        p_new = tree_add(r, tree_scale(beta, tree_sub(p, tree_scale(omega, v))))
+        res = _residual_norm(r, slab)
+        improved = torch.logical_and(torch.isfinite(res), res < self.best_res)
+        for b, new in zip(self.best_x, x):
+            b.copy_(torch.where(improved, new, b))
+        self.best_res.copy_(torch.where(improved, res, self.best_res))
+        for dst, new in ((self.x, x), (self.r, r), (self.p, p_new)):
+            for d, n in zip(dst, new):
+                d.copy_(n)
+        self.rho.copy_(rho_new)
+        self.res.copy_(res)
+
+    def solve(self, rhs: State, max_iterations: int, target_reduction: float) -> tuple:
+        """(x, iterations, final_res_norm), x a copy of the chosen iterate.
+        Before every iteration the loop tests `it < max_iterations`, `res >
+        target_reduction·res0` and `isfinite(res)`, as the reference's
+        `while_loop` condition does; on a breakdown (a NaN in the
+        recurrence) it returns the best iterate so far, so the restarted
+        outer solve can go on from the last good state."""
+        for d, f in zip(self.rhs, rhs):
+            d.copy_(f)
+        self.run("start")
+        res0 = _host_scalar(self.res)
+        threshold = type(res0)(target_reduction) * res0
+        res = best_res = res0
+        it = 0
+        while it < max_iterations and res > threshold and math.isfinite(res):
+            self.run("iteration")
+            res = _host_scalar(self.res)
+            it += 1
+            if math.isfinite(res) and res < best_res:
+                best_res = res
+        x = self.x if math.isfinite(res) and res <= best_res else self.best_x
+        return (tuple(t.clone() for t in x), it,
+                float(min(res if math.isfinite(res) else best_res, best_res)))
 
 
 def preconditioned_bicgstab(
@@ -115,47 +206,12 @@ def preconditioned_bicgstab(
     target_reduction: float,
     slab=None,
 ) -> tuple:
-    """Right-preconditioned BiCGStab; returns (x, iterations, final_res_norm)
-    with the count as an int and the norm as a float.
-
-    `apply_m(state)` applies the (evolved multigrid) preconditioner.  Before
-    every iteration the loop tests `it < max_iterations`, `res >
-    target_reduction·res0` and `isfinite(res)`, as the reference's
-    `while_loop` condition does; on a breakdown (a NaN in the recurrence)
-    it returns the best iterate so far, so the restarted outer solve can go
-    on from the last good state.
-    """
-    x = zeros_like_state(rhs)
-    r = tuple(rhs)
-    r_hat = r
-    p = r
-    rho = dot(r_hat, r, slab)
-    res0 = _residual_norm(r, slab)
-    threshold = type(res0)(target_reduction) * res0
-    res = res0
-    it = 0
-    best_x, best_res = x, res0
-    while it < max_iterations and res > threshold and math.isfinite(res):
-        p_hat = apply_m(p)
-        v = apply_a(p_hat)
-        alpha = _safe_div(rho, dot(r_hat, v, slab))
-        s = tree_sub(r, tree_scale(alpha, v))
-        s_hat = apply_m(s)
-        t = apply_a(s_hat)
-        omega = _safe_div(dot(t, s, slab), dot(t, t, slab))
-        x = tree_add(x, tree_add(tree_scale(alpha, p_hat), tree_scale(omega, s_hat)))
-        r = tree_sub(s, tree_scale(omega, t))
-        rho_new = dot(r_hat, r, slab)
-        beta = _safe_div(rho_new * alpha, rho * omega)
-        p = tree_add(r, tree_scale(beta, tree_sub(p, tree_scale(omega, v))))
-        rho = rho_new
-        res = _residual_norm(r, slab)
-        it += 1
-        if math.isfinite(res) and res < best_res:
-            best_x, best_res = x, res
-    if not (math.isfinite(res) and res <= best_res):
-        x = best_x
-    return x, it, float(min(res if math.isfinite(res) else best_res, best_res))
+    """Right-preconditioned BiCGStab, eagerly; returns (x, iterations,
+    final_res_norm) with the count as an int and the norm as a float.
+    `apply_m(state)` applies the (evolved multigrid) preconditioner; the
+    stopping test and the best-iterate rule are `BicgstabLoop.solve`'s."""
+    return BicgstabLoop(apply_a, apply_m, rhs, slab).solve(
+        rhs, max_iterations, target_reduction)
 
 
 SOLVERS = {

@@ -11,6 +11,7 @@ tensors it launches the kernel or raises.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import threading
@@ -35,18 +36,50 @@ MAX_BLOCKED_CELLS = 16384 * 16384
 # Side of the dense coefficient grid the kernel's C entry point reads.
 _SIDE = 2 * MAX_RADIUS + 1
 
-# Kernel launches by grid shape (rows, cols) since the last clear():
-# counted where the kernel launches, nowhere else (not where a CUDA graph
-# capture records it, nor in the graph's replays).
+# Kernel launches that reached the device, by grid shape (rows, cols),
+# since the last clear(): each eager launch where the wrapper launches, and
+# each launch a CUDA-graph replay runs (backend/graphs.py adds the launches
+# its capture recorded once per replay).  A capture itself launches nothing
+# and counts nothing.
 launches = collections.Counter()
+# The part of `launches` that graph replays ran.
+replayed = collections.Counter()
 # Counter's += reads and then writes: threads that launch at once would
 # lose counts without it.
 _launches_lock = threading.Lock()
+# The launches the capture running on this thread records.
+_recording = threading.local()
 
 
 def count_launch(shape) -> None:
     with _launches_lock:
         launches[tuple(shape)] += 1
+
+
+def count_replay(recorded: collections.Counter) -> None:
+    """One replay of a graph whose capture recorded `recorded`."""
+    with _launches_lock:
+        launches.update(recorded)
+        replayed.update(recorded)
+
+
+def clear_counts() -> None:
+    with _launches_lock:
+        launches.clear()
+        replayed.clear()
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Collect, by grid shape, the launches a CUDA-graph capture on this
+    thread records (backend/graphs.capture)."""
+    recorded = collections.Counter()
+    outer = getattr(_recording, "counter", None)
+    _recording.counter = recorded
+    try:
+        yield recorded
+    finally:
+        _recording.counter = outer
 
 
 def _stencil_radius(entries) -> int:
@@ -125,11 +158,16 @@ def _cached_omega(value: float, device: str) -> torch.Tensor:
 
 
 def _device_omega(omega, device) -> torch.Tensor:
-    """ω as a one-element float32 tensor on `device`; a float ω reuses one
-    cached tensor per (value, device), so it launches no fill kernel per
-    sweep."""
+    """ω as a one-element float32 tensor on `device`: a tensor ω as its
+    view, which a CUDA graph reads anew at every replay; a float ω reuses
+    one cached tensor per (value, device), so it launches no fill kernel per
+    sweep.  Under a capture a float ω gets a tensor of the graph's own: a
+    cached one filled there would live in the graph's pool and hold its
+    value only once the graph has replayed."""
     if torch.is_tensor(omega):
         return omega.to(device=device, dtype=torch.float32).reshape(1)
+    if torch.device(device).type == "cuda" and torch.cuda.is_current_stream_capturing():
+        return torch.full((1,), float(omega), dtype=torch.float32, device=device)
     return _cached_omega(float(omega), str(device))
 
 
@@ -145,6 +183,12 @@ def red_black_collective_jacobi_sweep(u, f, omega, stencil: constant.Stencil) ->
         raise ValueError(f"red-black sweep: unsupported {u.dtype} {tuple(u.shape)} {stencil!r}")
     if f.shape != u.shape or f.dtype != u.dtype or f.device != u.device:
         raise ValueError("red-black sweep: u and f differ in shape, dtype or device")
+    capturing = torch.cuda.is_current_stream_capturing()
+    recorded = getattr(_recording, "counter", None)
+    if capturing and recorded is None:
+        raise CudaKernelError(
+            "rb_sweep_f32 under a CUDA-graph capture that backend/graphs.capture "
+            "did not start: its replays would not be counted")
     u = u.contiguous()
     f = f.contiguous()
     omega_arg = _device_omega(omega, u.device)
@@ -158,7 +202,9 @@ def red_black_collective_jacobi_sweep(u, f, omega, stencil: constant.Stencil) ->
     )
     if err != 0:
         raise CudaKernelError(f"rb_sweep_f32 did not launch: CUDA error {err}")
-    if not torch.cuda.is_current_stream_capturing():
-        # A CUDA graph capture records the launch; its replays launch it.
+    if capturing:
+        # The capture records the launch; each replay counts it.
+        recorded[tuple(u.shape)] += 1
+    else:
         count_launch(u.shape)
     return out

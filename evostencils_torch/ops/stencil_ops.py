@@ -96,10 +96,13 @@ def apply_variable_stencil(u: torch.Tensor, offsets, planes, slab=None) -> torch
     return out
 
 
+@functools.lru_cache(maxsize=None)
 def parity_masks(shape: Tuple[int, ...], period: Tuple[int, ...], dtype, device, row_offset=0):
     """All per-cell masks of a period lattice, as a dict index -> mask, on
     interior coordinates (as the reference); `row_offset` is the global row
-    of a slab's first row."""
+    of a slab's first row.  Cached, as red_black_masks: a cycle captured in
+    a CUDA graph finds them on the device and copies nothing from the host;
+    callers never modify them."""
     grids = [(np.arange(n) + (row_offset if axis == 0 else 0)) % p
              for axis, (n, p) in enumerate(zip(shape, period))]
     mesh = np.meshgrid(*grids, indexing="ij")

@@ -15,7 +15,9 @@ with `use_kernels=False`, as the reference tunes with `use_pallas=False`:
 the masked half-sweeps in plain torch ops.  Every other caller launches
 the kernel.  On a device mesh every rank tunes the whole grid on its own
 device, as the reference tunes unsharded, and takes rank 0's factors
-(`layout`).
+(`layout`).  The tuner's cycles run eagerly: autograd records them, and a
+CUDA graph (backend/graphs.py) would replay no backward; the evaluations
+before and after tuning take the generator's graphs.
 
 `tune_outer_relaxation` is the reference's CMA-ES over the ω vector
 against a generator's measured iteration count: host code over any

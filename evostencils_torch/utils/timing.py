@@ -18,6 +18,8 @@ import time
 import numpy as np
 import torch
 
+from evostencils_torch.backend import graphs
+
 
 def _synchronize(device) -> None:
     if device.type == "cuda":
@@ -26,25 +28,12 @@ def _synchronize(device) -> None:
 
 def _capture(step, u0, f):
     """step(u, f) captured once in a CUDA graph on static copies of u0 and
-    f, after three eager warm-up calls on a side stream (which build every
-    cache the cycle keeps on the device).  Raises when the cycle cannot be
-    captured: a host sync or a host-to-device copy inside it."""
+    f (backend/graphs.capture, after three eager warm-up calls).  Raises
+    CudaGraphError when the cycle cannot be captured: a host sync or a
+    host-to-device copy inside it."""
     u_static = tuple(x.clone() for x in u0)
     f_static = tuple(x.clone() for x in f)
-    side = torch.cuda.Stream(device=u_static[0].device)
-    side.wait_stream(torch.cuda.current_stream(u_static[0].device))
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            step(u_static, f_static)
-    torch.cuda.current_stream(u_static[0].device).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    try:
-        with torch.cuda.graph(graph):
-            out = step(u_static, f_static)
-    except RuntimeError as err:
-        raise RuntimeError(
-            "per_cycle_time: the cycle cannot be captured in a CUDA graph "
-            f"(a host sync or a host-to-device copy inside it?): {err}") from err
+    graph, out = graphs.capture(lambda: step(u_static, f_static), warmup=3)
     # The graph's inputs and outputs stay alive as long as the graph.
     return graph, (u_static, f_static, out)
 
@@ -91,8 +80,8 @@ def per_cycle_time(step, u0, f, iters: int = 100, repeats: int = 5) -> float:
     On CUDA tensors: DEVICE seconds, from the cycle captured in a CUDA graph
     and replayed `iters` and `3·iters` times between CUDA events, the median
     of (t3 − t1) / 2·iters over `repeats`.  A cycle that cannot be captured
-    raises; there is no fallback to eager timing.  Graph replays launch no
-    kernel through the wrappers, so they add nothing to launch counts.
+    raises CudaGraphError; there is no fallback to eager timing.  The
+    warm-ups and every replay count in the kernel's launch counts.
 
     On CPU tensors: host seconds of eager cycles, by perf_counter
     differencing ((t(3K) − t(K)) / 2K, the minimum over `repeats`)."""

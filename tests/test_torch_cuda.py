@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from evostencils_torch import CudaGraphError
 from evostencils_torch.backend.evaluation import TorchProgramGenerator
 from evostencils_torch.backend.lowering import CycleLowering
 from evostencils_torch.grammar import gp
@@ -294,10 +295,14 @@ def test_per_cycle_time_graph_figure_is_below_the_wall_figure(cuda):
     before = rb_sweep.launches.total()
     step(u0, f)
     one_cycle = rb_sweep.launches.total() - before
+    replayed_before = rb_sweep.replayed.total()
     device_s = per_cycle_time(step, u0, f, iters=20, repeats=3)
-    # The capture's three warm-up calls launch the kernel; the capture and
-    # the replays add nothing to the count.
-    assert one_cycle > 0 and rb_sweep.launches.total() - before == 4 * one_cycle
+    # The capture's three warm-up calls launch the kernel, the capture
+    # itself nothing, and each replay a cycle's launches: one replay first,
+    # then 20 and 60 per repeat.
+    replays = 1 + 3 * (20 + 60)
+    assert one_cycle > 0 and rb_sweep.launches.total() - before == (4 + replays) * one_cycle
+    assert rb_sweep.replayed.total() - replayed_before == replays * one_cycle
     wall_s = wall_cycle_time(step, u0, f)
     assert 0 < device_s < wall_s
 
@@ -397,6 +402,57 @@ def test_thread_pool_dispatcher_on_the_card_matches_serial(cuda):
 
 
 @pytest.mark.cuda
+def test_evaluation_on_graphs_matches_the_eager_bodies(cuda):
+    """The bench champion at 511² and a Helmholtz V(2,1) at 31² with the
+    measurement loops on CUDA graphs and with cuda_graphs=False: the
+    champion's ρ within 1e-6 with equal counts and stage lengths, the
+    replays launching the kernel; Helmholtz with the same verdict."""
+    from evostencils_torch.utils.champions import apply_stored_omegas, parse_champion_file
+
+    problem = poisson_2d(5, 9, dtype=torch.float32)
+    pset, _ = generate_primitive_set(
+        problem.approximation(), problem.rhs(), problem.dimension, problem.coarsening_factors,
+        problem.max_level, problem.equations, problem.operators, problem.fields, depth=4,
+        maximum_local_system_size=8)
+    tree_string, omegas = parse_champion_file(
+        os.path.join(os.path.dirname(os.path.dirname(__file__)), "artifacts",
+                     "poisson2d_champion_r2_tuned.txt"))
+    champion = gp.compile_tree(gp.parse_tree(tree_string, pset), pset)[0]
+    assert apply_stored_omegas(champion, omegas, label="test champion")
+    outcomes = {}
+    rb_sweep.clear_counts()
+    for mode in (True, False):
+        generator = TorchProgramGenerator(
+            problem, dtype=torch.float32, iteration_limit=500, device=cuda, cuda_graphs=mode)
+        _, rho, iterations = generator.generate_and_evaluate(champion, evaluation_samples=1)
+        outcomes[mode] = (rho, iterations, generator.last_cycle_solve)
+        assert (generator.graph_cache is not None) == mode
+    assert abs(outcomes[True][0] - outcomes[False][0]) <= 1e-6 * outcomes[False][0]
+    assert outcomes[True][1:] == outcomes[False][1:] and outcomes[True][1] == 10
+    assert rb_sweep.replayed.total() > 0
+
+    helmholtz = helmholtz_2d(3, 5, k=20.0, dtype=torch.complex128)
+    _, terminals = generate_primitive_set(
+        helmholtz.approximation(), helmholtz.rhs(), 2, helmholtz.coarsening_factors,
+        helmholtz.max_level, helmholtz.equations, helmholtz.operators, helmholtz.fields,
+        depth=2, maximum_local_system_size=8)
+    cycle = reference_cycles.generate_v_cycle(terminals, helmholtz.rhs(), 2, 1, omega=0.6)
+    counts = {}
+    for mode in (True, False):
+        generator = TorchProgramGenerator(helmholtz, dtype=torch.complex128, device=cuda,
+                                          cuda_graphs=mode)
+        _, rho, iterations = generator.generate_and_evaluate(cycle, evaluation_samples=1)
+        counts[mode] = (iterations, generator.last_outer_solve)
+        assert rho < 1.0
+    # The same verdict; the count of a run of about 20 iterations within
+    # ±2 (tests/test_torch_helmholtz.py's band), equal expected.
+    (it_graphs, outer_graphs), (it_eager, outer_eager) = counts[True], counts[False]
+    assert abs(it_graphs - it_eager) <= 2
+    assert (outer_graphs["probe"], outer_graphs["stages"]) == (
+        outer_eager["probe"], outer_eager["stages"])
+
+
+@pytest.mark.cuda
 def test_per_cycle_time_refuses_a_cycle_with_a_host_sync(cuda):
     """Last in the file: a failed capture is the one test here that leaves
     the stream's capture aborted."""
@@ -411,5 +467,5 @@ def test_per_cycle_time_refuses_a_cycle_with_a_host_sync(cuda):
         float(out[0].sum())  # a host sync: cannot be captured
         return out
 
-    with pytest.raises(RuntimeError, match="cannot be captured"):
+    with pytest.raises(CudaGraphError, match="cannot be captured"):
         per_cycle_time(synchronizing, u0, f, iters=2, repeats=1)

@@ -521,7 +521,8 @@ def test_k320_champion_count_follows_the_summation_order(monkeypatch, capsys):
     counts = {}
     for name, field_dot in (("rows first", rows_first), ("flipped", flipped)):
         monkeypatch.setattr(
-            krylov, "dot", lambda a, b, _dot=field_dot: sum(_dot(x, y) for x, y in zip(a, b)))
+            krylov, "dot",
+            lambda a, b, slab=None, _dot=field_dot: sum(_dot(x, y) for x, y in zip(a, b)))
         problem = helmholtz.helmholtz_2d(min_level=3, max_level=7, k=320.0, dtype=torch.complex128)
         gen = TorchProgramGenerator(problem, dtype=torch.complex128, device="cpu")
         opt = Optimizer.for_problem(problem, program_generator=gen, rng=random.Random(0))

@@ -251,11 +251,12 @@ def test_preconditioned_bicgstab_decides_in_the_state_s_precision():
     shape, _, torch_apply, center = _operators("poisson")
     for np_dtype in (np.float32, np.complex64):
         f = torch.from_numpy(_rhs(shape, np_dtype, seed=9))
-        assert isinstance(krylov._residual_norm((f,)), np.float32)
+        assert isinstance(krylov._host_scalar(krylov._residual_norm((f,))), np.float32)
         x, it, res = krylov.preconditioned_bicgstab(
             torch_apply, _jacobi(torch_apply, center), (f,), 200, 1e-4)
         assert x[0].dtype == f.dtype and 0 < it < 200 and isinstance(res, float)
-    assert isinstance(krylov._residual_norm((f.to(torch.complex128),)), np.float64)
+    assert isinstance(
+        krylov._host_scalar(krylov._residual_norm((f.to(torch.complex128),))), np.float64)
 
 
 def _two_grid_with_cg(side_base, side_part, side_smoother, side_krylov, terminals, f, iterations):

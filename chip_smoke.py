@@ -229,10 +229,20 @@ The device mesh (parallel/mesh.py):
 CUDA graphs (backend/graphs.py).  Every phase's evaluations run their
 measurement loops on CUDA graphs, the generator's default on a card (FAS,
 the mesh, the headline's staged solves and the ω tuner stay eager by rule),
-and every kernel launch count includes the replays' launches.  The main
-path checks that no capture failed and that the kernel's launches reached
-the card through replays at every grid shape; the evolve phase prints the
-captures, their share of the evolution's wall time and the bytes held.
+and every kernel launch count includes the replays' launches.  A VM program
+runs on its problem's interpreter: one graph per ISA branch, captured at
+its first use, replayed in program order, with the loops' glue captured
+once per problem; a lowered structure keeps graphs of its own.  The main
+path checks that no capture failed, that the kernel's launches reached
+the card through replays at every grid shape, that the VM path captured at
+most one graph per registered branch and glue body (its captures, the
+distinct structures and the branches registered printed for each
+generator), and that a second pass of the 16 trees captures nothing and
+holds no more bytes; it prints the bytes held and, for the champion's
+program on its interpreter, the host's µs per graph replay beside the
+device's ms per cycle.  The evolve phase prints the captures, their share
+of the evolution's wall time, the bytes held and the same three VM numbers,
+and judges the same bound.
 
 25. graphs (run after the helmholtz phase): the main path's 16 trees and
    champion at 511² and its champion at 1023², the evolution (without
@@ -481,6 +491,46 @@ def check_results(failures: list, label: str, results) -> None:
             failures.append(f"{label} {index}: ρ is ∞ (device fault or build error)")
 
 
+def check_capture_bound(failures: list, label: str, stats_by_generator: dict) -> None:
+    """The VM path captures at most one graph per registered branch and
+    glue body, however many structures it evaluated."""
+    for name, stats in stats_by_generator.items():
+        if stats["vm_captures"] > stats["branches_registered"] + stats["glue_bodies"]:
+            failures.append(f"{label} {name}: {stats['vm_captures']} VM captures for "
+                            f"{stats['branches_registered']} branches and {stats['glue_bodies']} "
+                            f"glue bodies ({stats['structures']} structures)")
+        if not stats["vm_captures"]:
+            failures.append(f"{label} {name}: the VM path captured nothing: {stats}")
+
+
+def interpreter_replay_times(generator, expression, cycles: int = 20) -> dict:
+    """The expression's program on its interpreter, every branch captured:
+    the host's µs per graph replay (the enqueue of `cycles` cycles over
+    their replays) and the device's ms per cycle (CUDA events around them;
+    the host enqueues ahead, so a gap shows only where it falls behind)."""
+    vm, program = generator._vm_program(expression)
+    interpreter = generator._interpreter(vm)
+    with interpreter.lock:
+        interpreter.load(program)
+        interpreter.run_cycle()
+        torch.cuda.synchronize()
+        replays = graphs.counters.replays
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(cycles):
+            interpreter.run_cycle()
+        host_s = time.perf_counter() - t0
+        end.record()
+        end.synchronize()
+        count = graphs.counters.replays - replays
+    return {"program_length": program.length, "replays_per_cycle": count / cycles,
+            "host_us_per_replay": host_s / count * 1e6,
+            "host_ms_per_cycle": host_s / cycles * 1e3,
+            "device_ms_per_cycle": start.elapsed_time(end) / cycles}
+
+
 def phase_main_path(failures: list) -> tuple:
     problem = poisson_2d(min_level=5, max_level=9, dtype=torch.float32)
     pset = bench_pset(problem)
@@ -523,8 +573,19 @@ def phase_main_path(failures: list) -> tuple:
     replayed = dict(rb_sweep.replayed)
     graph_record = {**graphs.counters.as_dict(), "bytes_held": graphs.bytes_held(),
                     "entries": len(generator.graph_cache) + len(headline.graph_cache),
-                    "bytes_per_entry_1023": headline.graph_cache.bytes_held
-                    / max(1, len(headline.graph_cache))}
+                    "interpreter_bytes": {
+                        "511": sum(i.nbytes for i in generator._interpreters.values()),
+                        "1023": sum(i.nbytes for i in headline._interpreters.values())},
+                    "vm": {"511": generator.graph_stats(), "1023": headline.graph_stats()}}
+    # A second pass over the 16 trees: every branch they use has its graph,
+    # so it captures nothing and holds no more bytes.
+    captures, held = graphs.counters.captures, graphs.bytes_held()
+    for expr in expressions:
+        generator.generate_and_evaluate(expr, evaluation_samples=1)
+    torch.cuda.synchronize()
+    graph_record["second_pass"] = {"captures": graphs.counters.captures - captures,
+                                   "bytes_held_before": held, "bytes_held_after": graphs.bytes_held()}
+    graph_record["replay"] = interpreter_replay_times(generator, champion)
     launches_by_role = {name: 0 for name in ROLES}
     replayed_by_role = {name: 0 for name in ROLES}
     for shape, count in by_shape.items():
@@ -564,6 +625,10 @@ def phase_main_path(failures: list) -> tuple:
             failures.append(f"main path: no replayed kernel launch at {shape[0]}x{shape[1]}")
     if graph_record["capture_failures"] or not graph_record["replays"]:
         failures.append(f"main path: graphs {graph_record}")
+    check_capture_bound(failures, "main path", graph_record["vm"])
+    second = graph_record["second_pass"]
+    if second["captures"] or second["bytes_held_after"] != second["bytes_held_before"]:
+        failures.append(f"main path: the second pass of the trees captured or held more: {second}")
     check_results(failures, "champion", [(champ_t, champ_rho, champ_iters), result_1023])
     for name, count in launches_by_role.items():
         if count == 0:
@@ -640,10 +705,11 @@ def phase_evolve(failures: list) -> dict:
     optimizer, generator = result.optimizer, result.generator
     evaluations = optimizer._total_number_of_evaluations
     graph_record = {**graphs.counters.as_dict(), "bytes_held": graphs.bytes_held(),
-                    "entries": len(generator.graph_cache)}
+                    "entries": len(generator.graph_cache), "vm": generator.graph_stats()}
     # Warm-ups and captures of the run (the tuner's included) over the
     # evolution's wall time.
     graph_record["capture_share"] = graph_record["capture_s"] / result.evolution_s
+    check_capture_bound(failures, "evolve", {"evolution": graph_record["vm"]})
 
     individuals = [ind for hof in result.halls_of_fame for ind in hof]
     converged = [ind for ind in individuals if ind.fitness_values[1] < optimizer.infinity]

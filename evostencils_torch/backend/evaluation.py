@@ -29,17 +29,24 @@ shared.
 
 The generator runs on the card unless the caller asks for the CPU
 (`device="cpu"`).  The reference's device loops (`lax.while_loop`) are
-host loops here around bodies on the device: `StageLoop.cycle` (one cycle,
-its residual norm and the best-iterate update), `PowerLoop.block` (ten
-renormalised cycles and their rate) and `krylov.BicgstabLoop.iteration`
-(one outer iteration).  The host reads one value per body, the residual
-norm or the block's rate, and decides in the tensor's dtype as the
-reference does on the device, so the executed count and the exit reason
-match.  On a card each body is captured once in a CUDA graph per structure
-and replayed (backend/graphs.py, `cuda_graphs=True`, the default there):
-the counterpart of the reference's jit, so the time objective counts the
-device's work and one read per body, not the host's walk of the cycle.
-`cuda_graphs=False` runs the same bodies eagerly.  Explicit rules keep
+host loops here around a cycle and glue bodies on the device: `StageLoop`
+(a cycle, then its residual norm and the best-iterate update), `PowerLoop`
+(ten cycles, each renormalised, then the block's rate) and
+`krylov.BicgstabLoop` (one outer iteration, glue around its two
+preconditioner cycles).  The host reads one value per cycle or block, the
+residual norm or the block's rate, and decides in the tensor's dtype as
+the reference does on the device, so the executed count and the exit
+reason match.  On a card (backend/graphs.py, `cuda_graphs=True`, the
+default there) a VM program's cycle runs on its problem's
+`graphs.Interpreter`, one graph per ISA branch replayed in program order,
+and the glue around it is captured once per problem hierarchy: the
+counterpart of the reference's one interpreter executable, so a new
+structure costs no capture (but for a branch's first use), and the time
+objective counts the device's work and the replays, not the host's walk
+of the cycle.  A lowered cycle (`StepCycle`) and its loops' glue are
+captured per structure, as the reference compiles a lowered structure per
+structure.  `cuda_graphs=False` runs the same bodies eagerly, the cycle
+through `CycleVM.make_step` or the lowered step.  Explicit rules keep
 these eager: the CPU (no graphs), a device mesh (its transfers cannot be
 captured) and FAS (its own path, as in the reference).  Times are
 CUDA-event spans on a GPU and `perf_counter` spans on the CPU.
@@ -111,119 +118,150 @@ def _omega_values(omega_arg) -> np.ndarray:
     return np.asarray(omega_arg, dtype=np.float32)
 
 
-def _structure(omega_arg):
-    """What a solver's captured graphs depend on beyond its own key: the
-    opcodes of a VM program (the reference's ω-free key); nothing for a
-    lowered step, whose solver key is already structural."""
-    if isinstance(omega_arg, Program):
-        return omega_arg.opcodes[:omega_arg.length].tobytes()
-    return None
-
-
-class _OmegaStep:
-    """step(u, f, ω argument) bound to a static float32 ω tensor on the
-    device: the argument the step gets is `omega_arg`'s structure with the
-    static tensor for its ω, which `load` fills before a run."""
-
-    def __init__(self, step, omega_arg, device):
-        self.step = step
-        self.omegas = torch.zeros(len(_omega_values(omega_arg)), dtype=torch.float32,
-                                  device=device)
-        self.arg = (omega_arg._replace(omegas=self.omegas)
-                    if isinstance(omega_arg, Program) else self.omegas)
-
-    def __call__(self, u, f):
-        return self.step(u, f, self.arg)
-
-    def load(self, omega_arg) -> None:
-        self.omegas.copy_(torch.from_numpy(_omega_values(omega_arg)))
-
-
 def _real_scalar(like) -> torch.Tensor:
     """A 0-d zero of the state's real dtype on its device."""
     return torch.zeros((), dtype=like.real.dtype, device=like.device)
 
 
-class StageLoop(graphs.Loop):
-    """The body of the reference's `stage_raw` on static buffers: `start`
-    takes the residual norm of the loaded state; `cycle` runs one cycle,
-    its residual norm and the best-iterate update (`torch.where` into
-    `best_u`, `best_res`, `best_it`), as the reference's `while_loop` body
-    does on the device."""
+class StepCycle(graphs.Loop):
+    """One cycle u ← step(u, f, ω) in place on static buffers `u`, `f`
+    shaped like `like`: the eager form of every cycle (a VM program through
+    `CycleVM.make_step`, or a step lowered from the IR), and on CUDA graphs
+    a lowered structure's cycle, captured per structure with the loop that
+    runs it.  The same protocol as graphs.Interpreter: `u`, `f`, `lock`,
+    `load(omega_arg)`, `run_cycle()`.  The step gets `omega_arg`'s
+    structure with a static float32 ω tensor, which `load` fills."""
 
-    bodies = ("start", "cycle")
+    bodies = ("cycle",)
 
-    def __init__(self, step: _OmegaStep, residual_norm, like):
+    def __init__(self, step, omega_arg, like):
         super().__init__()
-        self.step, self.residual_norm = step, residual_norm
-        self.u, self.rhs, self.best_u = (sops.zeros_like_state(like) for _ in range(3))
+        self.step = step
+        self.omegas = torch.zeros(len(_omega_values(omega_arg)), dtype=torch.float32,
+                                  device=like[0].device)
+        self.arg = (omega_arg._replace(omegas=self.omegas)
+                    if isinstance(omega_arg, Program) else self.omegas)
+        self.u, self.f = sops.zeros_like_state(like), sops.zeros_like_state(like)
+
+    def __call__(self, u, f):
+        """The step on (u, f) with the loaded ω."""
+        return self.step(u, f, self.arg)
+
+    def load(self, omega_arg) -> None:
+        self.omegas.copy_(torch.from_numpy(_omega_values(omega_arg)))
+
+    def cycle(self) -> None:
+        for d, x in zip(self.u, self(self.u, self.f)):
+            d.copy_(x)
+
+    def run_cycle(self) -> None:
+        self.run("cycle")
+
+
+def _cycle_parts(cycle) -> tuple:
+    """The cycle as a part captured with its loop: a StepCycle is; an
+    Interpreter captures its own graphs."""
+    return (cycle,) if isinstance(cycle, graphs.Loop) else ()
+
+
+class StageLoop(graphs.Loop):
+    """The body of the reference's `stage_raw` around a cycle (StepCycle or
+    graphs.Interpreter) whose finest level holds the iterate and the
+    right-hand side: `start` takes the residual norm of the loaded state;
+    `step()` runs one cycle and then `post`, its residual norm and the
+    best-iterate update (`torch.where` into `best_u`, `best_res`,
+    `best_it`), as the reference's `while_loop` body does on the device."""
+
+    bodies = ("start", "post")
+
+    def __init__(self, cycle, residual_norm):
+        super().__init__()
+        self.cycle, self.residual_norm = cycle, residual_norm
+        self.lock = cycle.lock
+        like = cycle.u
+        self.best_u = sops.zeros_like_state(like)
         self.res, self.best_res = _real_scalar(like[0]), _real_scalar(like[0])
         self.it, self.best_it = (torch.zeros((), dtype=torch.int32, device=like[0].device)
                                  for _ in range(2))
 
+    def parts(self) -> tuple:
+        return _cycle_parts(self.cycle)
+
     def load(self, u0, rhs, omega_arg) -> None:
-        for dst, src in ((self.u, u0), (self.rhs, rhs)):
+        for dst, src in ((self.cycle.u, u0), (self.cycle.f, rhs)):
             for d, x in zip(dst, src):
                 d.copy_(x)
-        self.step.load(omega_arg)
+        self.cycle.load(omega_arg)
 
     def start(self) -> None:
-        res0 = self.residual_norm(self.u, self.rhs)
+        res0 = self.residual_norm(self.cycle.u, self.cycle.f)
         self.res.copy_(res0)
         self.best_res.copy_(res0)
         self.it.zero_()
         self.best_it.zero_()
-        for b, x in zip(self.best_u, self.u):
+        for b, x in zip(self.best_u, self.cycle.u):
             b.copy_(x)
 
-    def cycle(self) -> None:
-        u = self.step(self.u, self.rhs)
-        res = self.residual_norm(u, self.rhs)
+    def step(self) -> None:
+        self.cycle.run_cycle()
+        self.run("post")
+
+    def post(self) -> None:
+        u = self.cycle.u
+        res = self.residual_norm(u, self.cycle.f)
         self.it.add_(1)
         improved = res < self.best_res
         self.best_it.copy_(torch.where(improved, self.it, self.best_it))
         for b, x in zip(self.best_u, u):
             b.copy_(torch.where(improved, x, b))
         self.best_res.copy_(torch.where(improved, res, self.best_res))
-        for d, x in zip(self.u, u):
-            d.copy_(x)
         self.res.copy_(res)
 
 
 class PowerLoop(graphs.Loop):
-    """One block of the reference's `power_raw` on static buffers: ten
-    cycles on the error with f ≡ 0, renormalised every cycle, and the
-    block's per-cycle rate from the accumulated log-norms (a block rate of
-    ρ^10 underflows float32 for very fast cycles)."""
+    """One block of the reference's `power_raw` around a cycle: ten cycles
+    on the error with f ≡ 0, each followed by `renormalise` (the error
+    divided by its norm, the norm's log accumulated), then `block_rate`,
+    the block's per-cycle rate from the accumulated log-norms (a block rate
+    of ρ^10 underflows float32 for very fast cycles)."""
 
-    bodies = ("block",)
+    bodies = ("renormalise", "block_rate")
     BLOCK_LEN = 10
 
-    def __init__(self, step: _OmegaStep, norm, like):
+    def __init__(self, cycle, norm):
         super().__init__()
-        self.step, self.norm = step, norm
-        self.e, self.zf = sops.zeros_like_state(like), sops.zeros_like_state(like)
-        self.rate = _real_scalar(like[0])
+        self.cycle, self.norm = cycle, norm
+        self.lock = cycle.lock
+        self.log_acc, self.rate = _real_scalar(cycle.u[0]), _real_scalar(cycle.u[0])
+
+    def parts(self) -> tuple:
+        return _cycle_parts(self.cycle)
 
     def load(self, e0, zf, omega_arg) -> None:
-        for dst, src in ((self.e, e0), (self.zf, zf)):
+        for dst, src in ((self.cycle.u, e0), (self.cycle.f, zf)):
             for d, x in zip(dst, src):
                 d.copy_(x)
-        self.step.load(omega_arg)
+        self.cycle.load(omega_arg)
+        self.log_acc.zero_()
 
     def block(self) -> None:
-        e, log_acc = tuple(self.e), None
         for _ in range(self.BLOCK_LEN):
-            e = self.step(e, self.zf)
-            n = self.norm(e)
-            tiny = torch.finfo(n.dtype).tiny
-            safe = torch.where(n > 0, n, 1.0)
-            e = tuple(x / safe for x in e)
-            log_n = torch.log(torch.where(n > 0, n, tiny))
-            log_acc = log_n if log_acc is None else log_acc + log_n
-        for d, x in zip(self.e, e):
-            d.copy_(x)
-        self.rate.copy_(torch.exp(log_acc / self.BLOCK_LEN))
+            self.cycle.run_cycle()
+            self.run("renormalise")
+        self.run("block_rate")
+
+    def renormalise(self) -> None:
+        e = self.cycle.u
+        n = self.norm(e)
+        tiny = torch.finfo(n.dtype).tiny
+        safe = torch.where(n > 0, n, 1.0)
+        for x in e:
+            x.copy_(x / safe)
+        self.log_acc.add_(torch.log(torch.where(n > 0, n, tiny)))
+
+    def block_rate(self) -> None:
+        self.rate.copy_(torch.exp(self.log_acc / self.BLOCK_LEN))
+        self.log_acc.zero_()
 
 
 class TorchProgramGenerator:
@@ -251,8 +289,8 @@ class TorchProgramGenerator:
     ):
         self.problem = problem
         self.device = torch.device(device)
-        # The measurement loops' bodies run from CUDA graphs, captured once
-        # per structure (the default on a card without a mesh), or eagerly.
+        # The measurement loops' bodies run from CUDA graphs (the default on
+        # a card without a mesh), or eagerly.
         if cuda_graphs is None:
             cuda_graphs = self.device.type == "cuda" and mesh is None
         if cuda_graphs and self.device.type != "cuda":
@@ -287,6 +325,8 @@ class TorchProgramGenerator:
         self.layout = self.lowering.layout
         self._solver_cache = {}
         self._vms = {}
+        # The interpreter on CUDA graphs of each VM (backend/graphs.py).
+        self._interpreters = {}
         # Solver construction (VM opcodes, solver caches, hit counts) is
         # shared state: concurrent evaluations (parallel/dispatch.py) build
         # one at a time and run their solves unlocked.
@@ -297,9 +337,16 @@ class TorchProgramGenerator:
         self.rhs_seed = None
         self.init_seed = None
         self._consecutive_device_failures = 0
-        # How many solver builds took the cycle-VM path vs IR lowering.
+        # How many solver builds took the cycle-VM path vs IR lowering, the
+        # misses a program too long for the largest pad class caused, and
+        # the solvers a lazily registered branch made anew (the reference's
+        # interpreter recompiles).
         self.vm_hits = 0
         self.vm_misses = 0
+        self.vm_pad_overflows = 0
+        self.vm_isa_recompiles = 0
+        # The opcode sequences of the VM programs evaluated.
+        self._vm_structures = set()
         # Groups scored by generate_and_evaluate_group, and their members
         # (members of a group that fell back one by one are not counted).
         self.groups = 0
@@ -319,7 +366,33 @@ class TorchProgramGenerator:
         return {
             "vm_hits": self.vm_hits,
             "vm_misses": self.vm_misses,
+            "vm_pad_overflows": self.vm_pad_overflows,
+            "vm_isa_recompiles": self.vm_isa_recompiles,
             "vm_hit_rate": (self.vm_hits / total) if total else None,
+        }
+
+    def graph_stats(self) -> dict:
+        """What the VM path's CUDA graphs did: its captures (the
+        interpreters' prologues and branches, and the glue of the loops
+        around them), the branches registered in the ISAs that run on
+        graphs (NOP takes none), the glue bodies that exist, and the
+        distinct structures evaluated through the VM.  A new structure
+        captures only branches it is the first to use, so `vm_captures` ≤
+        `branches_registered` + `glue_bodies` however many structures
+        there are.  `lowered_captures`: the per-structure graphs of the
+        lowered path."""
+        cache = self.graph_cache
+        entries = [] if cache is None else list(cache._entries.items())
+        interpreters = list(self._interpreters.items())
+        return {
+            "vm_captures": (sum(i.captures for _, i in interpreters)
+                            + (cache.captures["__vm__"] if cache is not None else 0)),
+            "branches_registered": sum(len(vm._branches) - 1 for vm, _ in interpreters),
+            "glue_bodies": len(interpreters) + sum(
+                len(loop.bodies) for key, loop in entries if key[0] == "__vm__"),
+            "structures": len(self._vm_structures),
+            "lowered_captures": 0 if cache is None else sum(
+                n for kind, n in cache.captures.items() if kind != "__vm__"),
         }
 
     @property
@@ -399,6 +472,7 @@ class TorchProgramGenerator:
         self.problem = self.problem.with_levels(min_level, max_level)
         self._solver_cache.clear()
         self._vms.clear()
+        self._interpreters.clear()
         if self.graph_cache is not None:
             self.graph_cache.clear()
 
@@ -445,6 +519,25 @@ class TorchProgramGenerator:
             self._vms[key] = vm
         return vm
 
+    def _vm_key(self, vm, program, expression, tag=()):
+        """The solver key of a VM program, ("__vm__", param_sig, level,
+        isa_version) + tag, as the reference keys its interpreter: one per
+        problem hierarchy and ISA, whatever the structure.  A new key at a
+        level that already has one counts as an ISA recompile (the
+        reference's rule, evostencils_tpu/backend/evaluation.py:615-626)."""
+        base = ("__vm__", self._param_sig, self._expression_level(expression))
+        key = base + (vm.isa_version,) + tag
+        self._vm_structures.add(program.opcodes[:program.length].tobytes())
+        if key not in self._solver_cache and not tag and any(
+                isinstance(k, tuple) and k[:3] == base for k in self._solver_cache):
+            self.vm_isa_recompiles += 1
+        return base, key
+
+    def _vm_missed(self, vm) -> None:
+        self.vm_misses += 1
+        if vm is not None and vm.last_failure == "pad_overflow":
+            self.vm_pad_overflows += 1
+
     def _build_solver(self, expression):
         """((stage, power, operator), omega_arg): the measurement functions
         around the cycle VM's step when the expression translates, else
@@ -454,13 +547,13 @@ class TorchProgramGenerator:
             vm, program = self._vm_program(expression)
             if program is not None:
                 self.vm_hits += 1
-                key = ("__vm__", self._param_sig, self._expression_level(expression))
+                base, key = self._vm_key(vm, program, expression)
                 if key not in self._solver_cache:
                     operator = self._finest_operator_for(expression)
                     self._solver_cache[key] = self._stage_power_fns(
-                        vm.make_step(), operator, key) + (operator,)
+                        vm.make_step(), operator, base) + (operator,)
                 return self._solver_cache[key], program
-            self.vm_misses += 1
+            self._vm_missed(vm)
             omega_values = self._omega_vector(expression)
             key = self._structural_key(expression)
             if key not in self._solver_cache:
@@ -481,19 +574,35 @@ class TorchProgramGenerator:
             [float(c.relaxation_factor) for c in collect_cycles(expression)], dtype=np.float32
         )
 
-    def _loop(self, key, omega_arg, make, eager: bool = False):
-        """The measurement loop for this solver key and the structure of
-        `omega_arg`: make() captured and cached when the generator runs on
-        CUDA graphs, else (or when `eager`) a new one that runs eagerly."""
+    def _interpreter(self, vm) -> graphs.Interpreter:
+        with self._build_lock:
+            interpreter = self._interpreters.get(vm)
+            if interpreter is None:
+                interpreter = self._interpreters[vm] = graphs.Interpreter(vm.make_state())
+            return interpreter
+
+    def _loop(self, key, step, omega_arg, like, make, eager: bool = False):
+        """The measurement loop make(cycle) under `key`.  Eagerly (no graph
+        cache, or `eager`): a new loop around StepCycle(step).  On CUDA
+        graphs, a VM program's loop runs on its VM's Interpreter, its glue
+        captured once per problem hierarchy (under the interpreter's lock:
+        the warm-ups write its state); a lowered step's loop runs on a
+        StepCycle of its own, captured with it per structure."""
         if self.graph_cache is None or eager:
-            return make()
-        return self.graph_cache.get(key + (_structure(omega_arg),), make)
+            return make(StepCycle(step, omega_arg, like))
+        vm = getattr(step, "vm", None)
+        if vm is None or not isinstance(omega_arg, Program):
+            return self.graph_cache.get(key, lambda: make(StepCycle(step, omega_arg, like)))
+        interpreter = self._interpreter(vm)
+        with interpreter.lock:
+            return self.graph_cache.get(key, lambda: make(interpreter))
 
     def _stage_power_fns(self, step, operator, key):
         """The two measurement loops around step(u, f, omega_arg): the
         residual-driven stage solve and the error-propagation power
-        iteration; `key` is the solver's, under which their graphs are
-        kept."""
+        iteration; `key` is the one their graphs are kept under: the
+        problem hierarchy's for a VM step, the structure's for a lowered
+        one."""
         lowering = self.lowering
         cap = self.iteration_limit
         np_dt = self._np_real
@@ -523,8 +632,8 @@ class TorchProgramGenerator:
             """(best_res, res0, best_it, best_u, executed); the exit test is
             the reference's device test, evaluated in the tensor's dtype on
             one residual norm read back per cycle.  best_u is a copy."""
-            loop = self._loop(key + ("stage",), omega_arg, lambda: StageLoop(
-                _OmegaStep(step, omega_arg, self.device), residual_norm, u0), eager)
+            loop = self._loop(key + ("stage",), step, omega_arg, u0,
+                              lambda cycle: StageLoop(cycle, residual_norm), eager)
             with loop.lock:
                 loop.load(u0, rhs, omega_arg)
                 loop.run("start")
@@ -538,7 +647,7 @@ class TorchProgramGenerator:
                     and (it < 25 or res < grace * res0 * rho_required ** np_dt(it))
                     and it - best_it < patience
                 ):
-                    loop.run("cycle")
+                    loop.step()
                     res = np_dt(loop.res.item())
                     it += 1
                     if res < best_res:
@@ -548,11 +657,11 @@ class TorchProgramGenerator:
 
         def power(e0, zf, omega_arg):
             """(rate, cycles): blocks until the per-cycle rate settles."""
-            loop = self._loop(key + ("power",), omega_arg, lambda: PowerLoop(
-                _OmegaStep(step, omega_arg, self.device), norm, e0), eager)
+            loop = self._loop(key + ("power",), step, omega_arg, e0,
+                              lambda cycle: PowerLoop(cycle, norm), eager)
             with loop.lock:
                 loop.load(e0, zf, omega_arg)
-                loop.run("block")
+                loop.block()
                 rate = np_dt(loop.rate.item())
                 prev_rate, k = np_dt(0.0), 1
                 while (
@@ -561,7 +670,7 @@ class TorchProgramGenerator:
                     and rate < 2.0
                     and np.isfinite(rate)
                 ):
-                    loop.run("block")
+                    loop.block()
                     prev_rate, rate, k = rate, np_dt(loop.rate.item()), k + 1
             return rate, k * PowerLoop.BLOCK_LEN
 
@@ -819,8 +928,8 @@ class TorchProgramGenerator:
         outer operator from a zero guess, one cycle on (0, ·) as the
         preconditioner; on a mesh every inner product and norm is summed
         over the finest grid's slabs.  Its iteration's graphs are kept under
-        `key` and the cycle's structure: the probe and the full solve of
-        one cycle share them."""
+        `key` (the problem hierarchy's for a VM step, the structure's for a
+        lowered one): the probe and the full solve share them."""
         lowering = self.lowering
         slab = lowering._slab(outer_operator.grid[0])
         target = self.problem.outer_solver["target_reduction"]
@@ -834,19 +943,10 @@ class TorchProgramGenerator:
         def apply_a(state):
             return lowering.system_apply(outer_operator, state)
 
-        def make(f, omega_arg):
-            cycle = _OmegaStep(step, omega_arg, self.device)
-
-            def apply_m(state):
-                return cycle(sops.zeros_like_state(state), state)
-
-            loop = krylov.BicgstabLoop(apply_a, apply_m, f, slab)
-            loop.cycle = cycle
-            return loop
-
         def solve(f, omega_arg):
             res0 = float(sops.l2_norm(f, slab))
-            loop = self._loop(key + ("bicgstab",), omega_arg, lambda: make(f, omega_arg))
+            loop = self._loop(key + ("bicgstab",), step, omega_arg, f,
+                              lambda cycle: krylov.BicgstabLoop(apply_a, cycle, f, slab))
             with loop.lock:
                 loop.cycle.load(omega_arg)
                 x, it, res = loop.solve(f, max_iterations, target)
@@ -870,18 +970,18 @@ class TorchProgramGenerator:
             if program is not None:
                 if probe_iterations is None:
                     self.vm_hits += 1
-                base_key = ("__vm__", self._param_sig, self._expression_level(expression))
+                base_key, key = self._vm_key(vm, program, expression, (tag,))
                 omega_arg, make_step = program, vm.make_step
             else:
                 if probe_iterations is None:
-                    self.vm_misses += 1
+                    self._vm_missed(vm)
                 base_key = self._structural_key(expression, "outer")
+                key = base_key + (tag,)
                 omega_arg = self._omega_vector(expression)
 
                 def make_step():
                     return self.lowering.lower_parameterized(expression)[0]
 
-            key = base_key + (tag,)
             if key not in self._solver_cache:
                 outer_operator = self._outer_operator_for(expression)
                 self._solver_cache[key] = (

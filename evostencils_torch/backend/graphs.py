@@ -2,30 +2,40 @@
 package's compiled measurement functions.
 
 The reference never runs a cycle op by op.  Its cycle VM is one executable
-with the program passed in as data (evostencils_tpu/backend/vm.py), and its
-stage solve, power iteration and outer BiCGStab solve are `lax.while_loop`s
-on the device (evostencils_tpu/backend/evaluation.py `stage_raw`,
-`power_raw`, `solve_raw`), each one dispatch that `block_until_ready` times.
-Eager torch launches every op from the host, so a loop of eager cycles times
-the host's walk.  Here each loop's body is captured once in a CUDA graph and
-replayed:
+per problem with the program passed in as data (evostencils_tpu/backend/
+vm.py), and its stage solve, power iteration and outer BiCGStab solve are
+`lax.while_loop`s on the device (evostencils_tpu/backend/evaluation.py
+`stage_raw`, `power_raw`, `solve_raw`), each one dispatch that
+`block_until_ready` times.  Eager torch launches every op from the host, so
+a loop of eager cycles times the host's walk.  Here the work is captured in
+CUDA graphs and replayed:
 
-  * one stage cycle with its residual norm and the best-iterate update,
-  * one power block of ten renormalised cycles and its rate,
-  * one outer BiCGStab iteration, with its two preconditioner cycles.
+  * the cycle VM's interpreter (`Interpreter`): one graph per ISA branch
+    and one prologue per problem hierarchy, captured at first use; a cycle
+    replays the prologue and then the program's branches in order, each
+    reading its ω at the device program counter, so every translated
+    structure runs on the same graphs;
+  * a lowered cycle (`Loop` of one body, backend/evaluation.StepCycle),
+    one graph per structure, as the reference compiles a lowered structure
+    per structure;
+  * the glue of the measurement loops around a cycle: the stage's start,
+    residual norm and best-iterate update; the power block's
+    renormalisation and rate; the outer BiCGStab iteration's three pieces
+    around its two preconditioner cycles.
 
-The host keeps each loop's control and reads one value per body (a residual
-norm or a block rate), which the reference's `while_loop` condition reads on
-the device: the same test on the same values, so iteration counts, exit
-reasons and best iterates are the eager loop's.
+The host keeps each loop's control and reads one value per cycle or block
+(a residual norm or a block rate), which the reference's `while_loop`
+condition reads on the device: the same test on the same values, so
+iteration counts, exit reasons and best iterates are the eager loop's.
 
 A `Loop` holds static buffers and its bodies, methods that read and write
-only those buffers.  `run(name)` calls a body eagerly, or replays its graph
-once the loop is captured.  Inputs are filled with `copy_` before a replay,
-and anything kept from a replay is copied out before the next one.
-`GraphCache` keeps captured loops by structural key (for the VM the opcode
-sequence: the reference's ω-free key) under a bound on the bytes their
-graphs and buffers hold, evicting the least recently used.
+only those buffers (and those of the cycle it runs).  `run(name)` calls a
+body eagerly, or replays its graph once the loop is captured.  Inputs are
+filled with `copy_` before a replay, and anything kept from a replay is
+copied out before the next one.  `GraphCache` keeps captured loops by key
+(the interpreter's glue once per problem hierarchy, a lowered structure's
+loops per structure) under a bound on the bytes their graphs and buffers
+hold, evicting the least recently used.
 
 A capture that fails raises `CudaGraphError`.  It never runs eagerly in its
 place: an eager time beside graph times would corrupt the time objective of
@@ -51,10 +61,12 @@ from evostencils_torch.ops import rb_sweep
 # and the allocator's pools are shared.
 _capture_lock = threading.RLock()
 
-# Largest bytes one GraphCache holds before it evicts.  An entry held 65 MB
-# at 1023² and 37-59 MB at 511² on average (chip_smoke.py's main path and
-# evolve phases on an H100): 8 GiB keeps about 130 entries at 1023² and
-# 150-230 at 511², a tenth of an 80 GB card.
+# Largest bytes one GraphCache holds before it evicts.  A per-structure
+# entry (a cycle with its loop's bodies) held 65 MB at 1023² and 37-59 MB at
+# 511² on average when every structure had one (chip_smoke.py's main path
+# and evolve phases on an H100): 8 GiB keeps about 130 such entries at 1023²
+# and 150-230 at 511², a tenth of an 80 GB card.  The interpreter's glue
+# takes one entry per loop and problem hierarchy.
 DEFAULT_MAX_BYTES = 8 << 30
 
 
@@ -86,11 +98,32 @@ class Counters:
 
 counters = Counters()
 _caches = weakref.WeakSet()
+_interpreters = weakref.WeakSet()
 
 
 def bytes_held() -> int:
-    """Bytes every live GraphCache of the process holds."""
-    return sum(cache.bytes_held for cache in list(_caches))
+    """Bytes every live GraphCache and Interpreter of the process holds."""
+    return (sum(cache.bytes_held for cache in list(_caches))
+            + sum(interpreter.nbytes for interpreter in list(_interpreters)))
+
+
+def new_pool(device):
+    """A private memory pool for graphs on `device`; None off the card."""
+    return torch.cuda.graph_pool_handle() if torch.device(device).type == "cuda" else None
+
+
+def pool_bytes(pool) -> int:
+    """Bytes of the allocator's segments in `pool` (0 for None)."""
+    if pool is None:
+        return 0
+    return sum(segment["total_size"] for segment in torch.cuda.memory_snapshot()
+               if tuple(segment["segment_pool_id"]) == tuple(pool))
+
+
+def storage_bytes(tensors) -> int:
+    """Bytes of the distinct storages under `tensors`."""
+    return sum({t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in tensors}.values())
 
 
 class Graph:
@@ -180,10 +213,10 @@ class Loop:
     """Static buffers and the bodies that work on them.
 
     A subclass names its bodies in `bodies` (methods without arguments
-    that read and write only the loop's tensors) and keeps its host logic
-    in methods that call `run(name)`.  Eager until `capture_bodies()`; from
-    then on `run` replays.  `lock` serialises the host logic of threads
-    that share a cached loop."""
+    that read and write only the loop's tensors and those of its `parts()`)
+    and keeps its host logic in methods that call `run(name)`.  Eager until
+    `capture_bodies()`; from then on `run` replays.  `lock` serialises the
+    host logic of threads that share a cached loop."""
 
     bodies: tuple = ()
 
@@ -191,6 +224,12 @@ class Loop:
         self._graphs = None
         self.lock = threading.Lock()
         self.nbytes = 0
+        self.captures = 0
+
+    def parts(self) -> tuple:
+        """Loops captured with this one, into its pool (a lowered cycle
+        inside a measurement loop)."""
+        return ()
 
     def run(self, name: str) -> None:
         if self._graphs is None:
@@ -198,19 +237,80 @@ class Loop:
         else:
             self._graphs[name].replay()
 
-    def capture_bodies(self) -> None:
-        """Every body captured into one private pool.  The loop replays its
-        graphs one after another on one stream and never two at once, and
-        its bodies write only into its static buffers, so they share the
-        pool.  `nbytes`: the pool's segments and the static buffers."""
-        pool = torch.cuda.graph_pool_handle()
-        graphs = {name: capture(getattr(self, name), pool=pool)[0] for name in self.bodies}
-        self._graphs = graphs
-        pool_bytes = sum(segment["total_size"] for segment in torch.cuda.memory_snapshot()
-                         if tuple(segment["segment_pool_id"]) == tuple(pool))
-        static = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
-                  for value in vars(self).values() for t in _tensors(value)}
-        self.nbytes = pool_bytes + sum(static.values())
+    def capture_bodies(self, pool=None) -> None:
+        """Every body, and every part's, captured into one private pool
+        (`pool` when given).  The loop replays its graphs one after another
+        on one stream and never two at once, and its bodies write only into
+        static buffers, so they share the pool.  `nbytes`: the pool's
+        segments and the static buffers; `captures`: the graphs captured."""
+        loops = (self,) + self.parts()
+        tensors = [t for loop in loops for value in vars(loop).values() for t in _tensors(value)]
+        own_pool = pool is None
+        if own_pool:
+            pool = new_pool(tensors[0].device if tensors else "cpu")
+        self._graphs = {name: capture(getattr(self, name), pool=pool)[0] for name in self.bodies}
+        self.captures = len(self._graphs)
+        for part in self.parts():
+            part.capture_bodies(pool)
+            self.captures += part.captures
+        self.nbytes = (pool_bytes(pool) if own_pool else 0) + storage_bytes(tensors)
+
+
+class Interpreter:
+    """The cycle VM's interpreter on CUDA graphs (the counterpart of the
+    reference's one executable per problem, evostencils_tpu/backend/vm.py).
+
+    `state` is a backend/vm.LevelState: static levels, the program counter
+    and the ω buffer.  Its prologue and each branch's body are captured at
+    first use (warm-up first: the warm-up is that instruction's real run,
+    since a capture runs nothing) into one pool that every graph of the
+    interpreter shares: they run one at a time on one stream, and every
+    body writes only into the static state, so nothing one leaves alive
+    outlives it.  A lazily registered branch adds its own graph; none is
+    captured again.
+
+    `load(program)` copies the program's ω into the state; `run_cycle()`
+    runs the loaded program once on the finest level (`u`, `f`): the
+    prologue's graph, then the branches' graphs in program order, each
+    replay counted by Graph.replay (the replays, the sweep kernel's
+    recorded launches).  A body that cannot be captured raises
+    CudaGraphError; nothing runs eagerly in its place.  `lock` serialises
+    the loops and threads that share the state; `captures` counts this
+    interpreter's graphs, `nbytes` its pool and state."""
+
+    def __init__(self, state):
+        self.state = state
+        self.u, self.f = state.u, state.f
+        self.lock = threading.RLock()
+        self._pool = new_pool(state.pc.device)
+        self._graphs = {}
+        self._sequence = ()
+        self.captures = 0
+        self._nbytes = None
+        _interpreters.add(self)
+
+    @property
+    def nbytes(self) -> int:
+        """The pool's segments and the state, measured when first asked
+        after a capture (the allocator's snapshot is not cheap)."""
+        if self._nbytes is None:
+            self._nbytes = pool_bytes(self._pool) + storage_bytes(self.state.tensors())
+        return self._nbytes
+
+    def load(self, program) -> None:
+        self._sequence = ("prologue",) + tuple(self.state.load(program))
+
+    def run_cycle(self) -> None:
+        for key in self._sequence:
+            graph = self._graphs.get(key)
+            if graph is not None:
+                graph.replay()
+                continue
+            # The warm-up inside capture() runs this instruction.
+            body = self.state.prologue if key == "prologue" else self.state.body(key)
+            self._graphs[key] = capture(body, pool=self._pool)[0]
+            self.captures += 1
+            self._nbytes = None
 
 
 class GraphCache:
@@ -225,6 +325,8 @@ class GraphCache:
         self._entries = collections.OrderedDict()
         self._lock = threading.Lock()
         self.bytes_held = 0
+        # Graphs captured for the entries, by the first item of their key.
+        self.captures = collections.Counter()
         _caches.add(self)
 
     def __len__(self) -> int:
@@ -251,6 +353,7 @@ class GraphCache:
             with self._lock:
                 self._entries[key] = loop
                 self.bytes_held += loop.nbytes
+                self.captures[key[0] if isinstance(key, tuple) else key] += loop.captures
                 evicted = self._evict()
             if evicted:
                 del evicted

@@ -16,15 +16,28 @@ ISA (branches are enumerated per level with the operators baked in):
     PROLONG[P, level](ω)                u_l += ω·P·u_{l+1}
 
 Registration and translation are the reference's, so both VMs number the
-same branches alike.  The reference runs the program inside one compiled
-`lax.switch` interpreter with the program passed in as data; here
-`make_step` is a Python loop over the branches (programs need no padding),
-and a CUDA graph captured from it takes the place of the compiled
-interpreter (backend/graphs.py).  ω is one float32 tensor on the device
-per program, and each instruction reads its 0-d view, so a graph holds no
-ω of its own: one graph serves every program with the same opcodes, ω
-mutations and same-structure groups included.  ω stays float32 as in the
-reference, so it is rounded alike.
+same branches alike, bump `isa_version` alike (every registration, the
+lazy ones of a CMA-ES transfer stencil or a Krylov coarse solve included)
+and refuse a program longer than the reference's largest pad class
+(`last_failure = "pad_overflow"`).  The reference runs the program inside
+one compiled `lax.switch` interpreter with the program passed in as data.
+Here it has two forms:
+
+  * `make_step`, a Python loop over the branches: the eager form, which
+    the CPU and `cuda_graphs=False` run;
+  * `LevelState`, the interpreter's static state (every level's iterate
+    and right-hand side, allocated once, a device program counter `pc` and
+    a static float32 ω buffer of `PAD_CLASSES[-1]` entries) with one body
+    per branch that reads its ω as `omegas[pc]` on the device, runs the
+    branch's ops, writes the levels it changes back into the state and
+    advances `pc`.  backend/graphs.Interpreter captures each body once in
+    a CUDA graph and runs a program as the prologue's graph and then its
+    branches' graphs in order, so one set of graphs per problem hierarchy
+    runs every translated cycle and a new structure captures nothing but
+    the branches it uses for the first time.
+
+Both forms run the same ops in the same order on the same ω (float32, as
+in the reference, so it is rounded alike), so they give the same bits.
 
 `include_block_smoothers=False` is the reference's slim ISA, which it
 builds for outer-Krylov (Helmholtz) problems to keep its compiled
@@ -40,6 +53,7 @@ allocated in the local shapes, and the ops exchange halos themselves.
 from __future__ import annotations
 
 import itertools
+import threading
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -48,6 +62,13 @@ import torch
 from evostencils_torch.ir import base, partitioning as part, system
 from evostencils_torch.ir.transformations import canonical_string
 from evostencils_torch.ops import stencil_ops as sops
+
+# The reference pads programs to the smallest of its classes and compiles
+# its interpreter per class; no legal tree (the grammar caps trees at 150
+# nodes, each production emits at most two instructions) exceeds the
+# largest.  The port needs no padding, but keeps the largest class as the
+# bound of a program and the size of LevelState's ω buffer.
+PAD_CLASSES = (64, 160, 320)
 
 
 class Program(NamedTuple):
@@ -88,8 +109,16 @@ class CycleVM:
             for i in range(self.n_levels)
         ]
         self._op_index = {}
+        # Per opcode the eager branch, branch(state, ω) -> state, and the
+        # interpreter's body, body(LevelState) (None for NOP: no graph).
         self._branches = [self._nop_branch()]
-        self.last_failure = None  # "not_translatable"
+        self._bodies = [None]
+        self.isa_version = 0
+        self.last_failure = None  # "not_translatable" | "pad_overflow"
+        # Lazy registration may come from concurrent evaluations
+        # (parallel/dispatch.py): without the lock two threads could bind
+        # an opcode key to another op's branch index.
+        self._op_lock = threading.Lock()
         self._preregister()
 
     # ------------------------------------------------------------------
@@ -103,12 +132,22 @@ class CycleVM:
         return nop
 
     def _opcode(self, key, make_branch) -> int:
+        """The opcode of `key`, registered on first sight: make_branch()
+        returns (branch, body)."""
         idx = self._op_index.get(key)
-        if idx is None:
+        if idx is not None:
+            return idx
+        with self._op_lock:
+            idx = self._op_index.get(key)
+            if idx is not None:
+                return idx
+            branch, body = make_branch()
             idx = len(self._branches)
-            self._branches.append(make_branch())
+            self._branches.append(branch)
+            self._bodies.append(body)
             self._op_index[key] = idx
-        return idx
+            self.isa_version += 1
+            return idx
 
     def _level_index(self, expr) -> int:
         grids = expr.grid if isinstance(expr.grid, list) else [expr.grid]
@@ -135,7 +174,7 @@ class CycleVM:
                 u_l = lowering._apply_smoothing(u[level], f[level], B, A, kind, omega)
                 return (_replace(u, level, u_l), f)
 
-            return branch
+            return branch, _writing_level(branch, level, reads_omega=True)
 
         return self._opcode(key, make)
 
@@ -145,18 +184,25 @@ class CycleVM:
         coarse_shapes = self._shapes[level + 1]
 
         def make():
+            def restricted(u, f):
+                r = sops.tree_sub(f[level], lowering.system_apply(A, u[level]))
+                return lowering.intergrid_apply(R, r)
+
             def branch(state, omega):
                 u, f = state
-                r = sops.tree_sub(f[level], lowering.system_apply(A, u[level]))
-                f_c = lowering.intergrid_apply(R, r)
                 u_c = tuple(
                     torch.zeros(lowering.local_shape(s), dtype=lowering.dtype,
                                 device=lowering.device)
                     for s in coarse_shapes
                 )
-                return (_replace(u, level + 1, u_c), _replace(f, level + 1, f_c))
+                return (_replace(u, level + 1, u_c), _replace(f, level + 1, restricted(u, f)))
 
-            return branch
+            def body(state):
+                _write(state.f_all[level + 1], restricted(state.u_all, state.f_all))
+                for x in state.u_all[level + 1]:
+                    x.zero_()
+
+            return branch, body
 
         return self._opcode(key, make)
 
@@ -171,7 +217,7 @@ class CycleVM:
                 u_l = tuple(x + omega * c for x, c in zip(u[level], corr))
                 return (_replace(u, level, u_l), f)
 
-            return branch
+            return branch, _writing_level(branch, level, reads_omega=True)
 
         return self._opcode(key, make)
 
@@ -186,7 +232,7 @@ class CycleVM:
                 u, f = state
                 return (_replace(u, level, lowering.cgs_apply(solver, f[level])), f)
 
-            return branch
+            return branch, _writing_level(branch, level, reads_omega=False)
 
         return self._opcode(key, make)
 
@@ -243,7 +289,8 @@ class CycleVM:
     # ------------------------------------------------------------------
 
     def translate(self, expression) -> Optional[Program]:
-        """Program for `expression`, or None if outside the ISA."""
+        """Program for `expression`, or None if outside the ISA or longer
+        than the largest pad class (`last_failure` says which)."""
         instrs: List[Tuple[int, float]] = []
         self.last_failure = None
         try:
@@ -252,6 +299,9 @@ class CycleVM:
             instrs = []
         if not instrs:
             self.last_failure = "not_translatable"
+            return None
+        if len(instrs) > PAD_CLASSES[-1]:
+            self.last_failure = "pad_overflow"
             return None
         opcodes = np.asarray([op for op, _ in instrs], dtype=np.int32)
         omegas = np.asarray([w for _, w in instrs], dtype=np.float32)
@@ -334,12 +384,11 @@ class CycleVM:
 
     def make_step(self):
         """step(u_fields, f_fields, program) -> u_fields at the finest
-        level, with the same call shape as the lowered step.  Instruction i
-        reads ω as the 0-d view omegas[i] of `device_omegas(program)`; a
-        numpy ω vector costs one host-to-device copy per call, so a caller
-        that captures the step passes a program whose ω is a device tensor.
-        The coarse levels start as zeros made inside the step, so a graph
-        captured from it zeroes them at every replay."""
+        level, with the same call shape as the lowered step: the eager form
+        of the interpreter.  Instruction i reads ω as the 0-d view
+        omegas[i] of `device_omegas(program)`; a numpy ω vector costs one
+        host-to-device copy per call, so a caller that runs the step many
+        times passes a program whose ω is a device tensor."""
         branches = self._branches
         shapes = self._shapes
         lowering = self.lowering
@@ -360,4 +409,86 @@ class CycleVM:
             return state[0][0]
 
         step.layout = lowering.layout
+        # The generator runs the interpreter of this VM in its place on
+        # CUDA graphs (backend/evaluation.py).
+        step.vm = self
         return step
+
+    def make_state(self) -> "LevelState":
+        return LevelState(self)
+
+
+def _write(dst: Tuple, src: Tuple) -> None:
+    """Copy a branch's result into the static state.  The result is a new
+    tensor the branch computed to the end, so no operand is overwritten
+    while it is still read."""
+    for d, x in zip(dst, src):
+        d.copy_(x)
+
+
+def _writing_level(branch, level: int, reads_omega: bool):
+    """The body of a branch that changes only u_level: the branch on the
+    static state, its u_level copied back."""
+
+    def body(state):
+        omega = state.omega() if reads_omega else None
+        _write(state.u_all[level], branch((state.u_all, state.f_all), omega)[0][level])
+
+    return body
+
+
+class LevelState:
+    """The interpreter's static state for one VM: every level's iterate and
+    right-hand side (`u_all`, `f_all`, one tuple of fields per level, 0 the
+    finest, in the lowering's local shapes), the program counter `pc` (0-d
+    int64) and the ω buffer (float32, PAD_CLASSES[-1] entries), all
+    allocated once.  A caller writes the finest level (`u`, `f`) and loads
+    a program's ω; `prologue` and `body(opcode)` are what
+    backend/graphs.Interpreter captures."""
+
+    def __init__(self, vm: CycleVM):
+        self.vm = vm
+        lowering = vm.lowering
+
+        def level(shapes):
+            return tuple(torch.zeros(lowering.local_shape(s), dtype=lowering.dtype,
+                                     device=lowering.device) for s in shapes)
+
+        self.u_all = tuple(level(shapes) for shapes in vm._shapes)
+        self.f_all = tuple(level(shapes) for shapes in vm._shapes)
+        self.u, self.f = self.u_all[0], self.f_all[0]
+        self.pc = torch.zeros((), dtype=torch.int64, device=lowering.device)
+        self.omegas = torch.ones(PAD_CLASSES[-1], dtype=torch.float32, device=lowering.device)
+
+    def tensors(self) -> Tuple[torch.Tensor, ...]:
+        return sum(self.u_all, ()) + sum(self.f_all, ()) + (self.pc, self.omegas)
+
+    def load(self, program: Program) -> List[int]:
+        """Copy the program's ω (a numpy vector, as `translate` makes it)
+        into the buffer; returns its opcodes."""
+        n = program.length
+        self.omegas[:n].copy_(torch.from_numpy(
+            np.ascontiguousarray(program.omegas[:n], dtype=np.float32)))
+        return program.opcodes[:n].tolist()
+
+    def omega(self) -> torch.Tensor:
+        """The current instruction's ω, omegas[pc], read on the device
+        (indexing with the 0-d `pc` itself would read it to the host)."""
+        return self.omegas.index_select(0, self.pc.view(1)).view(())
+
+    def prologue(self) -> None:
+        """pc = 0 and the coarse levels zeroed, as `make_step` starts."""
+        self.pc.zero_()
+        for level in self.u_all[1:] + self.f_all[1:]:
+            for x in level:
+                x.zero_()
+
+    def body(self, opcode: int):
+        """One instruction: the branch's body, then pc + 1."""
+        body = self.vm._bodies[opcode]
+
+        def run():
+            body(self)
+            self.pc.add_(1)
+
+        return run

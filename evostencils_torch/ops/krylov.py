@@ -8,10 +8,12 @@ reference's `lax.fori_loop`) and never read a value back to the host.
 the evolved multigrid cycle of the Helmholtz configuration, and stops on
 its residual: the reference's `lax.while_loop` is a host loop here that
 reads the residual norm once per iteration, so the iteration count, which
-is the fitness, is decided by the same test on the same values.  Its body
-is `BicgstabLoop.iteration`: one outer iteration on static buffers, with
-the scalars and the best-iterate update on the device, which the fitness
-captures once in a CUDA graph and replays (backend/graphs.py).
+is the fitness, is decided by the same test on the same values.  One
+iteration is `BicgstabLoop.iteration`, on static buffers, with the scalars
+and the best-iterate update on the device: three glue bodies around its
+two preconditioner cycles, which the fitness captures in CUDA graphs and
+replays (backend/graphs.py), the cycles being the problem's interpreter
+or a lowered structure's own graph.
 
 Plain torch: the reductions and updates are library calls, as the
 reference left them to XLA.  With a `slab` (a state split by rows over a
@@ -22,6 +24,7 @@ rank computes the same coefficients and takes the same decisions.
 from __future__ import annotations
 
 import math
+import threading
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -115,25 +118,52 @@ def _host_scalar(norm: torch.Tensor):
     return (np.float64 if norm.dtype == torch.float64 else np.float32)(norm.item())
 
 
+class _ClosureCycle:
+    """A preconditioner closure apply_m(state) -> state as a cycle: `f` in,
+    `u` out (the cycle protocol of backend/graphs.py); eager only."""
+
+    def __init__(self, apply_m: Callable, like: State):
+        self.apply_m = apply_m
+        self.u, self.f = zeros_like_state(like), zeros_like_state(like)
+        self.lock = threading.Lock()
+
+    def run_cycle(self) -> None:
+        for d, x in zip(self.u, self.apply_m(self.f)):
+            d.copy_(x)
+
+
 class BicgstabLoop(graphs.Loop):
     """Right-preconditioned BiCGStab on static buffers shaped like `like`.
 
+    The preconditioner is one cycle on (0, ·): a cycle object (`u`, `f`,
+    `lock`, `run_cycle()`: backend/evaluation.StepCycle or
+    backend/graphs.Interpreter) run in place, or a closure apply_m(state).
     `start` sets up the recurrence from the right-hand side in `rhs`;
-    `iteration` is one outer iteration (two preconditioner and two operator
-    applications, the inner products and updates, the residual norm and the
-    reference's best-iterate update, all on the device).  `solve` is the
-    host loop around them."""
+    `iteration()` is one outer iteration (two preconditioner and two
+    operator applications, the inner products and updates, the residual
+    norm and the reference's best-iterate update, all on the device): the
+    glue bodies `before_cycles` (the first cycle's input), `between_cycles`
+    (its result, the operator, α, s, the second cycle's input) and
+    `after_cycles` (the rest) around the two cycles.  `solve` is the host
+    loop around them."""
 
-    bodies = ("start", "iteration")
+    bodies = ("start", "before_cycles", "between_cycles", "after_cycles")
 
-    def __init__(self, apply_a: Callable, apply_m: Callable, like: State, slab=None):
+    def __init__(self, apply_a: Callable, preconditioner, like: State, slab=None):
         super().__init__()
-        self.apply_a, self.apply_m, self.slab = apply_a, apply_m, slab
-        self.rhs, self.x, self.r, self.p, self.best_x = (
-            zeros_like_state(like) for _ in range(5))
+        self.cycle = (preconditioner if hasattr(preconditioner, "run_cycle")
+                      else _ClosureCycle(preconditioner, like))
+        self.lock = self.cycle.lock
+        self.apply_a, self.slab = apply_a, slab
+        self.rhs, self.x, self.r, self.p, self.best_x, self.p_hat, self.v, self.s = (
+            zeros_like_state(like) for _ in range(8))
         self.rho = torch.zeros((), dtype=like[0].dtype, device=like[0].device)
+        self.alpha = self.rho.clone()
         self.res = torch.real(self.rho).clone()
         self.best_res = self.res.clone()
+
+    def parts(self) -> tuple:
+        return (self.cycle,) if isinstance(self.cycle, graphs.Loop) else ()
 
     def start(self) -> None:
         for x, b in zip(self.x, self.best_x):
@@ -148,20 +178,43 @@ class BicgstabLoop(graphs.Loop):
         self.best_res.copy_(res)
 
     def iteration(self) -> None:
+        self.run("before_cycles")
+        self.cycle.run_cycle()
+        self.run("between_cycles")
+        self.cycle.run_cycle()
+        self.run("after_cycles")
+
+    def _cycle_input(self, state: State) -> None:
+        for u, d, x in zip(self.cycle.u, self.cycle.f, state):
+            u.zero_()
+            d.copy_(x)
+
+    def before_cycles(self) -> None:
+        self._cycle_input(self.p)
+
+    def between_cycles(self) -> None:
         # The shadow residual r̂ is r0, the right-hand side.
-        slab, r_hat, p, rho = self.slab, self.rhs, self.p, self.rho
-        p_hat = self.apply_m(p)
-        v = self.apply_a(p_hat)
-        alpha = _safe_div(rho, dot(r_hat, v, slab))
+        for d, x in zip(self.p_hat, self.cycle.u):
+            d.copy_(x)
+        v = self.apply_a(self.p_hat)
+        alpha = _safe_div(self.rho, dot(self.rhs, v, self.slab))
         s = tree_sub(self.r, tree_scale(alpha, v))
-        s_hat = self.apply_m(s)
+        for dst, new in ((self.v, v), (self.s, s)):
+            for d, n in zip(dst, new):
+                d.copy_(n)
+        self.alpha.copy_(alpha)
+        self._cycle_input(self.s)
+
+    def after_cycles(self) -> None:
+        slab, r_hat, p, rho, alpha, s = self.slab, self.rhs, self.p, self.rho, self.alpha, self.s
+        s_hat = self.cycle.u
         t = self.apply_a(s_hat)
         omega = _safe_div(dot(t, s, slab), dot(t, t, slab))
-        x = tree_add(self.x, tree_add(tree_scale(alpha, p_hat), tree_scale(omega, s_hat)))
+        x = tree_add(self.x, tree_add(tree_scale(alpha, self.p_hat), tree_scale(omega, s_hat)))
         r = tree_sub(s, tree_scale(omega, t))
         rho_new = dot(r_hat, r, slab)
         beta = _safe_div(rho_new * alpha, rho * omega)
-        p_new = tree_add(r, tree_scale(beta, tree_sub(p, tree_scale(omega, v))))
+        p_new = tree_add(r, tree_scale(beta, tree_sub(p, tree_scale(omega, self.v))))
         res = _residual_norm(r, slab)
         improved = torch.logical_and(torch.isfinite(res), res < self.best_res)
         for b, new in zip(self.best_x, x):
@@ -188,7 +241,7 @@ class BicgstabLoop(graphs.Loop):
         res = best_res = res0
         it = 0
         while it < max_iterations and res > threshold and math.isfinite(res):
-            self.run("iteration")
+            self.iteration()
             res = _host_scalar(self.res)
             it += 1
             if math.isfinite(res) and res < best_res:

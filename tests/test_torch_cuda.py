@@ -453,6 +453,38 @@ def test_evaluation_on_graphs_matches_the_eager_bodies(cuda):
 
 
 @pytest.mark.cuda
+def test_a_new_structure_of_registered_branches_captures_nothing_on_the_card(cuda):
+    """Textbook V(2,2), then V(1,2) and V(3,1) at other ω through one
+    generator on graphs at 511²: the later structures capture no graph,
+    and each fitness equals its eager run's (ρ, counts, stage lengths)."""
+    from evostencils_torch.backend import graphs
+
+    problem = poisson_2d(5, 9, dtype=torch.float32)
+    _, terminals = generate_primitive_set(
+        problem.approximation(), problem.rhs(), problem.dimension, problem.coarsening_factors,
+        problem.max_level, problem.equations, problem.operators, problem.fields, depth=4,
+        maximum_local_system_size=8)
+    on_graphs = TorchProgramGenerator(problem, dtype=torch.float32, iteration_limit=500,
+                                      device=cuda)
+    eager = TorchProgramGenerator(problem, dtype=torch.float32, iteration_limit=500,
+                                  device=cuda, cuda_graphs=False)
+    captures = []
+    for pre, post, omega in ((2, 2, 1.0), (1, 2, 0.9), (3, 1, 1.1)):
+        cycle = reference_cycles.generate_v_cycle(terminals, problem.rhs(), pre, post,
+                                                  omega=omega)
+        before = graphs.counters.captures
+        got = on_graphs.generate_and_evaluate(cycle, evaluation_samples=1)
+        captures.append(graphs.counters.captures - before)
+        expected = eager.generate_and_evaluate(cycle, evaluation_samples=1)
+        assert got[1:] == expected[1:]
+        assert on_graphs.last_cycle_solve == eager.last_cycle_solve
+    assert captures[0] > 0 and captures[1:] == [0, 0]
+    stats = on_graphs.graph_stats()
+    assert stats["structures"] == 3
+    assert stats["vm_captures"] <= stats["branches_registered"] + stats["glue_bodies"]
+
+
+@pytest.mark.cuda
 def test_per_cycle_time_refuses_a_cycle_with_a_host_sync(cuda):
     """Last in the file: a failed capture is the one test here that leaves
     the stream's capture aborted."""

@@ -9,24 +9,26 @@ A CPU has no graphs, so these tests hold what a capture relies on:
   `torch.tensor`, `torch.as_tensor` and `torch.from_numpy`, raise around one
   cycle of each of the 16 bench trees and the stored champion (2D Poisson,
   levels 2-6, float32; the VM step and the lowered step), around the stage
-  and power bodies, and around one outer BiCGStab iteration (Helmholtz,
-  levels 3-5).  A Python scalar read from ω, or a tensor made from host
-  data inside a step, would be frozen into a graph at its capture;
+  and power glue bodies, and around one outer BiCGStab iteration
+  (Helmholtz, levels 3-5).  A Python scalar read from ω, or a tensor made
+  from host data inside a step, would be frozen into a graph at its
+  capture;
 * the VM step with ω as a float32 tensor gives the float-ω step to the bit,
-  and one cached loop serves two programs with the same opcodes and other
-  ω, each with its own result;
+  and one interpreter with one cached glue loop serves programs with the
+  same opcodes and other ω, each with its own result, and programs of other
+  opcodes, capturing only the branches they are first to use;
 * the restructured stage, power and BiCGStab loops run eagerly give the
   port's earlier eager loops exactly (copied here as the oracle), and the
   JAX package's `stage_raw`, `power_raw` and outer solve within the
   tolerances of tests/test_torch_slice.py and tests/test_torch_helmholtz.py;
-* a generator whose graph cache replays bodies eagerly (a fake capture)
-  scores every individual as the eager generator does, reusing one loop
-  per structure; the cache's LRU bound; replays count the sweep kernel's
-  recorded launches.
+* a generator whose graphs replay bodies eagerly (`capture` replaced by an
+  eager stand-in) scores every individual as the eager generator does,
+  with one interpreter and one glue loop per problem for the VM and one
+  loop per lowered structure; the cache's LRU bound; replays count the
+  sweep kernel's recorded launches.
 """
 
 import collections
-import contextlib
 import math
 import os
 import random
@@ -42,7 +44,8 @@ from evostencils_tpu.problems import helmholtz as jax_helmholtz
 from evostencils_tpu.problems.poisson import poisson_2d as jax_poisson_2d
 from evostencils_torch import CudaGraphError
 from evostencils_torch.backend import graphs
-from evostencils_torch.backend.evaluation import PowerLoop, StageLoop, TorchProgramGenerator
+from evostencils_torch.backend.evaluation import (
+    PowerLoop, StageLoop, StepCycle, TorchProgramGenerator)
 from evostencils_torch.backend.lowering import CycleLowering
 from evostencils_torch.backend.vm import CycleVM
 from evostencils_torch.grammar import gp
@@ -52,39 +55,12 @@ from evostencils_torch.ops import stencil_ops as sops
 from evostencils_torch.problems import helmholtz
 from evostencils_torch.problems.poisson import poisson_2d
 from evostencils_torch.utils.champions import apply_stored_omegas, parse_champion_file
-from torch_parity import JAX, PORT, Side, jax_state
+from torch_parity import (
+    JAX, PORT, EagerCapture, Side, eager_capture, jax_state, no_host_reads)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHAMPION = os.path.join(ROOT, "artifacts", "poisson2d_champion_r2_tuned.txt")
 INFINITY = 1e100
-
-_TENSOR_READS = ("item", "__bool__", "__float__", "__int__", "__index__", "tolist", "cpu",
-                 "numpy")
-_HOST_DATA = ("tensor", "as_tensor", "from_numpy")
-
-
-@contextlib.contextmanager
-def no_host_reads():
-    """Every way a body could read a tensor to the host, or make one from
-    host data, raises inside the block."""
-    saved = [(torch.Tensor, n, getattr(torch.Tensor, n)) for n in _TENSOR_READS]
-    saved += [(torch, n, getattr(torch, n)) for n in _HOST_DATA]
-
-    def refuse(owner, name, original):
-        def refused(*args, **kwargs):
-            if owner is torch and args and torch.is_tensor(args[0]):
-                return original(*args, **kwargs)  # a tensor's own data, on its device
-            raise AssertionError(f"a host read or host data inside a body: {name}")
-        return refused
-
-    for owner, name, original in saved:
-        setattr(owner, name, refuse(owner, name, original))
-    try:
-        yield
-    finally:
-        for owner, name, original in saved:
-            setattr(owner, name, original)
-
 
 def test_the_guard_catches_a_host_read():
     x = torch.ones(3)
@@ -155,31 +131,45 @@ def test_no_host_read_inside_one_cycle(index):
 
 
 def test_no_host_read_inside_the_stage_and_power_bodies():
+    """The glue bodies of both loops, around the eager cycle and around
+    the interpreter (with the eager capture stand-in: its warm-up and its
+    replays run under the guard), and one host step of each loop."""
     problem, expressions = BENCH
     generator = TorchProgramGenerator(problem, dtype=torch.float32, iteration_limit=100,
                                       device="cpu")
     champion = expressions[-1]
     (stage, power, operator), program = generator._build_solver(champion)
     vm = generator._vm_for(problem.max_level)
-    from evostencils_torch.backend.evaluation import _OmegaStep
 
     u0, f = _state(problem)
     u0, f = (u0,), (f,)
-    step = _OmegaStep(vm.make_step(), program, "cpu")
 
     def residual_norm(u, rhs):
         return sops.l2_norm(sops.tree_sub(rhs, generator.lowering.system_apply(operator, u)))
 
-    stage_loop = StageLoop(step, residual_norm, u0)
-    stage_loop.load(u0, f, program)
-    power_loop = PowerLoop(step, sops.l2_norm, u0)
-    power_loop.load(u0, tuple(torch.zeros_like(x) for x in f), program)
-    for loop in (stage_loop, power_loop):
-        for name in loop.bodies:
-            loop.run(name)
+    interpreter = graphs.Interpreter(vm.make_state())
+    saved, graphs.capture = graphs.capture, eager_capture
+    try:
+        for cycle in (StepCycle(vm.make_step(), program, u0), interpreter):
+            stage_loop = StageLoop(cycle, residual_norm)
+            stage_loop.load(u0, f, program)
+            power_loop = PowerLoop(cycle, sops.l2_norm)
+            # Warm: the interpreter captures the branches at their first use.
+            for loop, host_step in ((stage_loop, stage_loop.step), (power_loop, power_loop.block)):
+                for name in loop.bodies:
+                    loop.run(name)
+                host_step()
+            power_loop.load(u0, tuple(torch.zeros_like(x) for x in f), program)
             with no_host_reads():
-                loop.run(name)
-    assert int(stage_loop.it) == 2 and math.isfinite(float(power_loop.rate))
+                for loop, host_step in ((stage_loop, stage_loop.step),
+                                        (power_loop, power_loop.block)):
+                    for name in loop.bodies:
+                        loop.run(name)
+                    host_step()
+            assert int(stage_loop.it) == 2 and math.isfinite(float(power_loop.rate))
+    finally:
+        graphs.capture = saved
+    assert interpreter.captures == 1 + len(set(program.opcodes.tolist()))
 
 
 # ---- ω as a device tensor -----------------------------------------------
@@ -215,14 +205,10 @@ def test_vm_step_with_tensor_omega_equals_the_float_omega_step(dtype):
         assert torch.equal(g, e)
 
 
-class EagerCapture:
-    """Stands in for a CUDA graph: replay() calls the body."""
-
-    def __init__(self, body):
-        self.body = body
-
-    def replay(self):
-        self.body()
+@pytest.fixture
+def eager_graphs(monkeypatch):
+    """graphs.capture replaced by the eager stand-in for the test."""
+    monkeypatch.setattr(graphs, "capture", eager_capture)
 
 
 class FakeGraphCache(graphs.GraphCache):
@@ -240,25 +226,42 @@ class FakeGraphCache(graphs.GraphCache):
         pass
 
 
-def test_one_cached_loop_serves_programs_with_the_same_opcodes():
+def test_one_cached_loop_serves_programs_with_the_same_opcodes(eager_graphs):
     """Two ω variants of the champion: the second reuses the first's
-    cached power loop and still gets its own rate."""
+    cached power loop and interpreter graphs, captures nothing, and still
+    gets its own rate.  Then a bench tree of other opcodes: the same glue
+    loop and interpreter, new captures only for branches it is the first
+    to use."""
     problem, expressions = BENCH
     cached = TorchProgramGenerator(problem, dtype=torch.float32, device="cpu")
-    cached.graph_cache = FakeGraphCache()
+    cached.graph_cache = graphs.GraphCache()
     eager = TorchProgramGenerator(problem, dtype=torch.float32, device="cpu")
     tree_string, omegas = parse_champion_file(CHAMPION)
     side = Side(PORT, problem, depth=4)
-    rates = []
+    variants = []
     for scale in (1.0, 0.8):
         expr = side.compile(tree_string)
         apply_stored_omegas(expr, [w * scale for w in omegas], label="variant")
+        variants.append(expr)
+    tree = next(e for e in expressions[:-1] if cached._vm_program(e)[1] is not None)
+    rates, captures = [], []
+    for expr in variants + [tree]:
         (_, power, _), program = cached._build_solver(expr)
         (_, eager_power, _), eager_program = eager._build_solver(expr)
         _, _, e0, zf = cached._probe_state(expr)
+        before = graphs.counters.captures
+        registered = set(cached._interpreters[cached._vm_for(problem.max_level)]._graphs
+                         ) if cached._interpreters else set()
         rates.append(power(e0, zf, program)[0])
+        new = set(program.opcodes.tolist()) - registered
+        captures.append((graphs.counters.captures - before, len(new)))
         assert rates[-1] == eager_power(e0, zf, eager_program)[0]
-    assert len(cached.graph_cache) == 1 and rates[0] != rates[1]
+    assert len(cached.graph_cache) == 1 and len(cached._interpreters) == 1
+    assert rates[0] != rates[1]
+    # The first run captures the glue (2), the prologue and its branches;
+    # the ω variant nothing; the other tree only its new branches.
+    assert captures[0] == (2 + 1 + captures[0][1], captures[0][1])
+    assert captures[1][0] == 0 and captures[2][0] == captures[2][1]
 
 
 # ---- the restructured loops against the port's eager loops and JAX ------
@@ -443,9 +446,8 @@ def _helmholtz_pieces(dtype=torch.complex128, vm=True):
     else:
         step, omega_arg = (generator.lowering.lower_parameterized(expr)[0],
                            generator._omega_vector(expr))
-    from evostencils_torch.backend.evaluation import _OmegaStep
-
-    cycle = _OmegaStep(step, omega_arg, "cpu")
+    f = generator._to_device(problem.initial_state(dtype)[1])
+    cycle = StepCycle(step, omega_arg, f)
     cycle.load(omega_arg)
 
     def apply_m(state):
@@ -454,7 +456,6 @@ def _helmholtz_pieces(dtype=torch.complex128, vm=True):
     def apply_a(state):
         return generator.lowering.system_apply(outer, state)
 
-    f = generator._to_device(problem.initial_state(dtype)[1])
     return generator, expr, apply_a, apply_m, f
 
 
@@ -465,10 +466,10 @@ def test_no_host_read_inside_one_bicgstab_iteration(vm):
     for d, x in zip(loop.rhs, f):
         d.copy_(x)
     loop.run("start")
-    loop.run("iteration")
+    loop.iteration()
     with no_host_reads():
         loop.run("start")
-        loop.run("iteration")
+        loop.iteration()
     assert math.isfinite(float(loop.res))
 
 
@@ -507,14 +508,15 @@ def test_bicgstab_loop_matches_the_reference_outer_solve():
 
 # ---- the generator on a cache that replays eagerly ----------------------
 
-def test_a_cached_generator_scores_as_the_eager_one():
+def test_a_cached_generator_scores_as_the_eager_one(eager_graphs):
     """The bench trees and the champion, one by one and as a group of ω
     variants: ρ, iterations and every stage's executed count equal; one
-    cached loop per solver and structure."""
+    cached stage and power loop for every VM program, and one each per
+    lowered structure."""
     problem, expressions = BENCH
     cached = TorchProgramGenerator(problem, dtype=torch.float32, iteration_limit=100,
                                    device="cpu")
-    cached.graph_cache = FakeGraphCache()
+    cached.graph_cache = graphs.GraphCache()
     eager = TorchProgramGenerator(problem, dtype=torch.float32, iteration_limit=100,
                                   device="cpu")
     keys = set()
@@ -524,8 +526,7 @@ def test_a_cached_generator_scores_as_the_eager_one():
         assert got[1:] == expected[1:], canonical_string(expr)
         assert cached.last_cycle_solve == eager.last_cycle_solve
         vm, program = cached._vm_program(expr)
-        keys.add(program.opcodes.tobytes() if program is not None
-                 else cached._structural_key(expr))
+        keys.add("__vm__" if program is not None else cached._structural_key(expr))
     assert len(keys) <= len(cached.graph_cache) <= 2 * len(keys)
     size = len(cached.graph_cache)
     side = Side(PORT, problem, depth=4)
@@ -541,13 +542,14 @@ def test_a_cached_generator_scores_as_the_eager_one():
     assert cached.groups == 1 and len(cached.graph_cache) == size
 
 
-def test_a_cached_generator_solves_helmholtz_as_the_eager_one():
-    """k = 20, levels 3-5, complex128: the probe (a cached loop) and the
-    staged solve share one loop; counts, ρ and the probe's verdict equal."""
+def test_a_cached_generator_solves_helmholtz_as_the_eager_one(eager_graphs):
+    """k = 20, levels 3-5, complex128: the probe and the staged solve of
+    both cycles share one BiCGStab glue loop on the interpreter; counts, ρ
+    and the probe's verdict equal."""
     problem = helmholtz.helmholtz_2d(3, 5, k=20.0, dtype=torch.complex128)
     side = Side(PORT, problem)
     cached = TorchProgramGenerator(problem, dtype=torch.complex128, device="cpu")
-    cached.graph_cache = FakeGraphCache()
+    cached.graph_cache = graphs.GraphCache()
     eager = TorchProgramGenerator(problem, dtype=torch.complex128, device="cpu")
     for pre, post, omega in ((2, 1, 0.6), (1, 2, 0.7)):
         expr = side.cycle(pre, post, omega)
@@ -555,7 +557,7 @@ def test_a_cached_generator_solves_helmholtz_as_the_eager_one():
         expected = eager.generate_and_evaluate(expr, evaluation_samples=1)
         assert got[1:] == expected[1:] and got[0] < INFINITY
         assert cached.last_outer_solve == eager.last_outer_solve
-    assert len(cached.graph_cache) == 2
+    assert len(cached.graph_cache) == 1 and len(cached._interpreters) == 1
 
 
 # ---- the cache, the counts and the flag ----------------------------------

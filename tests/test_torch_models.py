@@ -243,7 +243,8 @@ def test_evaluation_report_and_bandwidth(tmp_path):
         evaluation_samples=1)
     report = profiling.evaluation_report(generator)
     assert set(report) == {"run_time_s", "solver_cache_entries", "device_failures", "groups",
-                           "group_members", "vm_hits", "vm_misses", "vm_hit_rate"}
+                           "group_members", "vm_hits", "vm_misses", "vm_pad_overflows",
+                           "vm_isa_recompiles", "vm_hit_rate"}
     assert report["vm_hits"] + report["vm_misses"] == 1 and report["solver_cache_entries"] == 1
     expression = reference_cycles.generate_v_cycle(side.terminals, problem.rhs(), 2, 1)
     utilization = profiling.bandwidth_utilization(expression, 1e-3)

@@ -8,6 +8,8 @@ textbook V-cycle with a chosen smoother on either side.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import random
 from typing import NamedTuple
 
@@ -140,3 +142,54 @@ def assert_close_relative(got, expected, tolerance):
     for g, e in zip(got, expected):
         g = g.detach().cpu().numpy() if torch.is_tensor(g) else np.asarray(g)
         np.testing.assert_allclose(g / scale, np.asarray(e) / scale, rtol=0, atol=tolerance)
+
+
+class EagerCapture:
+    """Stands in for a CUDA graph: replay() calls the body."""
+
+    def __init__(self, body):
+        self.body = body
+
+    def replay(self):
+        self.body()
+
+
+def eager_capture(fn, warmup=1, pool=None):
+    """Stands in for evostencils_torch.backend.graphs.capture on the CPU:
+    the warm-ups run fn, as they do on the card (where the capture itself
+    runs nothing), and the "graph" calls fn at every replay.  Counted as a
+    capture."""
+    from evostencils_torch.backend import graphs
+
+    for _ in range(warmup):
+        fn()
+    graphs.counters.add("captures")
+    return graphs.Graph(EagerCapture(fn), collections.Counter()), None
+
+
+_TENSOR_READS = ("item", "__bool__", "__float__", "__int__", "__index__", "tolist", "cpu",
+                 "numpy")
+_HOST_DATA = ("tensor", "as_tensor", "from_numpy")
+
+
+@contextlib.contextmanager
+def no_host_reads():
+    """Every way a body could read a tensor to the host, or make one from
+    host data, raises inside the block."""
+    saved = [(torch.Tensor, n, getattr(torch.Tensor, n)) for n in _TENSOR_READS]
+    saved += [(torch, n, getattr(torch, n)) for n in _HOST_DATA]
+
+    def refuse(owner, name, original):
+        def refused(*args, **kwargs):
+            if owner is torch and args and torch.is_tensor(args[0]):
+                return original(*args, **kwargs)  # a tensor's own data, on its device
+            raise AssertionError(f"a host read or host data inside a body: {name}")
+        return refused
+
+    for owner, name, original in saved:
+        setattr(owner, name, refuse(owner, name, original))
+    try:
+        yield
+    finally:
+        for owner, name, original in saved:
+            setattr(owner, name, original)

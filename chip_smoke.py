@@ -110,10 +110,16 @@ printing its wall seconds, its ms per iteration, the kernel's launches
    CPU too (2 % / ±1); once more in float32, recorded and not judged.
 14. fas: the FAS champion and both textbook V(2,2)s (Newton and Picard) at
    levels 5-9 (511²) in float32 through the optimizer's grammar-string
-   entry (three timing samples for the champion, one for each textbook);
-   the champion must beat both and agree with its CPU run (2 % /
-   ±1); 20 textbook Newton cycles through CycleLowering.lower on the card
-   must reach the manufactured solution within 5e-3 in max norm.
+   entry (three timing samples for the champion, one for each textbook),
+   each on CUDA graphs (the default: its stage loop captured per
+   structure) and with cuda_graphs=False: ρ, iterations and each stage's
+   executed count equal to the bit, a capture on graphs, ms per iteration
+   both ways with the captures, their seconds and bytes printed; the
+   champion's cycle alone (device ms from graph replays, wall ms eagerly)
+   printed beside its ms per iteration inside the stage; the champion
+   must beat both textbooks and agree with its CPU run (2 % / ±1); 20
+   textbook Newton cycles through CycleLowering.lower on the card must
+   reach the manufactured solution within 5e-3 in max norm.
 15. helmholtz_robin: the textbook V(2,1) ω = 0.6 preconditioning BiCGStab
    with Robin boundaries, complex128, levels 3-7, k = 80, the outer cap cut
    to 600 like the ladder's; the count and ρ recorded, the CPU run with the
@@ -121,7 +127,9 @@ printing its wall seconds, its ms per iteration, the kernel's launches
 16. fas_evolve: scripts/torch_optimize.py on FAS (levels 5-9, SOGP, μ = λ
    = 4, initial factor 2, one generation, one sample, seed 3), artifacts
    under chiprun_out/fas_evolve/; the best has a finite fitness and
-   re-evaluates to its recorded count ±1.
+   re-evaluates to its recorded count ±1; evaluations per hour, and the
+   captures of the per-structure FAS graphs with their share of the
+   evolution's wall time, printed.
 17. profile_families: one evaluation (one timing sample) of the tuned
    variable-coefficient champion (511²) and one of the tuned 3D champion
    (127³, float32) under
@@ -133,10 +141,15 @@ printing its wall seconds, its ms per iteration, the kernel's launches
 The staged deep solves and the models:
 
 18. headline: scripts/torch_headline_1024.py in this process at 1023²
-   (levels 6-10), float32, --predicted, --repeats cut from 9 to 3: textbook
-   V(2,1), V(2,2) and artifacts/paper_protocol/individual_1_tuned.txt with
-   its stored ω; then one V(2,2) solve through build_fused_staged_solver (no
-   ρ).  Checks: every solve reaches rel ≤ 1e-10 in host IEEE float64; the
+   (levels 6-10), float32, --predicted --compare-eager, --repeats cut from
+   9 to 3: textbook V(2,1), V(2,2) and
+   artifacts/paper_protocol/individual_1_tuned.txt with its stored ω; then
+   the V(2,2) through build_fused_staged_solver (no ρ), one solve and three
+   timed.  Every solver runs on CUDA graphs (the default, captured once per
+   solver) and with cuda_graphs=False: cycles, stages and rel (and the
+   measured floor) equal to the bit, wall min and median per solve both
+   ways, the device compute, the captures, their seconds and bytes.
+   Checks: every solve reaches rel ≤ 1e-10 in host IEEE float64; the
    kernel launched at every smoothed level, 127²-511² (the TPU's
    whole-array route) and 1023² (its row-blocked route; 63² is the
    coarsest level, solved dense); a finite positive device time per cycle.
@@ -227,9 +240,10 @@ The device mesh (parallel/mesh.py):
    Every run launches the sweep kernel 0 times (`mesh_launches`).
 
 CUDA graphs (backend/graphs.py).  Every phase's evaluations run their
-measurement loops on CUDA graphs, the generator's default on a card (FAS,
-the mesh, the headline's staged solves and the ω tuner stay eager by rule),
-and every kernel launch count includes the replays' launches.  A VM program
+measurement loops on CUDA graphs, the generator's default on a card (FAS
+too; the mesh and the ω tuner stay eager by rule), the headline's staged
+solves replay graphs captured once per solver, and every kernel launch
+count includes the replays' launches.  A VM program
 runs on its problem's interpreter: one graph per ISA branch, captured at
 its first use, replayed in program order, with the loops' glue captured
 once per problem; a lowered structure keeps graphs of its own.  The main
@@ -252,7 +266,10 @@ and judges the same bound.
    in 10 on graphs; Helmholtz with the same probe verdict and stages and the
    count within 2 %.  Then, in a child process, the champion through a
    lowering whose operator reads one value to the host: a finite fitness
-   eagerly, CudaGraphError on graphs and one failed capture.  Printed, not
+   eagerly, CudaGraphError on graphs and one failed capture; and a fused
+   staged solver at 255² whose cycle reads one value to the host: it
+   solves eagerly, and on graphs it raises CudaGraphError with one failed
+   capture.  Printed, not
    judged: ms per iteration, evaluations per hour, ms per outer iteration,
    captures, replays, capture seconds, evictions and bytes held per mode.
 
@@ -298,6 +315,7 @@ from evostencils_torch.problems.helmholtz import helmholtz_2d
 from evostencils_torch.problems.poisson import poisson_2d
 from evostencils_torch.stencils import constant
 from evostencils_torch.utils.champions import apply_stored_omegas, parse_champion_file
+from evostencils_torch.utils.timing import per_cycle_time, wall_cycle_time
 from scripts import (
     torch_calibrate_roofline, torch_champion_stats, torch_evaluate_evolved_solver,
     torch_evaluate_helmholtz_ladder, torch_evaluate_reference_solver, torch_headline_1024,
@@ -1294,33 +1312,78 @@ def phase_elasticity(failures: list) -> int:
     return launched
 
 
-def grammar_entry_evaluation(problem, device, path: str, samples: int = 3) -> dict:
+def grammar_entry_evaluation(problem, device, path: str, samples: int = 3,
+                             cuda_graphs=None) -> dict:
     """A stored grammar string through the optimizer's grammar-string entry,
     which builds the primitive set (the FAS one for a FAS problem), with
-    `samples` timing samples on the card (one on the CPU)."""
+    `samples` timing samples on the card (one on the CPU).  On the card it
+    also records each stage's executed count and what the generator's
+    graphs captured: their count, seconds and bytes."""
     with open(path) as f:
         tree_string = "".join(line for line in f if not line.startswith("#")).strip()
-    generator = TorchProgramGenerator(problem, dtype=problem.dtype, device=device)
+    generator = TorchProgramGenerator(problem, dtype=problem.dtype, device=device,
+                                      cuda_graphs=cuda_graphs)
     optimizer = Optimizer.for_problem(problem, program_generator=generator, rng=random.Random(0))
+    before = graphs.counters.as_dict()
     t0 = time.perf_counter()
     fitness = optimizer.generate_and_evaluate_program_from_grammar_representation(
         tree_string, 8, evaluation_samples=1 if device == "cpu" else samples)
-    if device != "cpu":
-        torch.cuda.synchronize()
-    return fitness_record(fitness, t0)
+    if device == "cpu":
+        return fitness_record(fitness, t0)
+    torch.cuda.synchronize()
+    record = fitness_record(fitness, t0)
+    after = graphs.counters.as_dict()
+    cache = generator.graph_cache
+    record.update(
+        stage_executed=generator.last_cycle_solve["stage_executed"],
+        captures=after["captures"] - before["captures"],
+        capture_s=after["capture_s"] - before["capture_s"],
+        graph_bytes=0 if cache is None else cache.bytes_held)
+    return record
+
+
+FAS_GRAPH_KEYS = ("rho", "iterations", "stage_executed")
 
 
 def phase_fas(failures: list) -> int:
+    """The FAS champion and both textbooks on CUDA graphs (the default) and
+    with cuda_graphs=False: ρ, iterations and each stage's executed count
+    equal to the bit, ms per iteration both ways; the champion's cycle
+    alone on a graph and eagerly beside its ms per iteration in the stage;
+    20 Newton cycles; the champion on the CPU."""
     start = time.perf_counter()
     rb_sweep.launches.clear()
     problem = fas.fas_2d(5, 9, dtype=torch.float32)
-    results = {"champion": grammar_entry_evaluation(problem, DEVICE, FAS_CHAMPION)}
-    results["champion"]["reference_n20"] = reference_record("fas", FAS_CHAMPION)
-    for name, path in FAS_TEXTBOOKS.items():
-        # One timing sample: a textbook's ρ is the stall rule's, its time
-        # is printed, and three samples took ~25 s each.
-        results[f"textbook_{name}"] = grammar_entry_evaluation(problem, DEVICE, path, samples=1)
-        results[f"textbook_{name}"]["reference_n20"] = reference_record("fas", path)
+    results, eager = {}, {}
+    for name, path, samples in (("champion", FAS_CHAMPION, 3),
+                                *((f"textbook_{n}", p, 1) for n, p in FAS_TEXTBOOKS.items())):
+        # One timing sample for a textbook: its ρ is the stall rule's, its
+        # time is printed, and three samples took ~25 s each eagerly.
+        results[name] = grammar_entry_evaluation(problem, DEVICE, path, samples=samples)
+        results[name]["reference_n20"] = reference_record("fas", path)
+        eager[name] = grammar_entry_evaluation(problem, DEVICE, path, samples=samples,
+                                               cuda_graphs=False)
+    graph_vs_eager = {
+        name: {"equal": all(results[name][k] == eager[name][k] for k in FAS_GRAPH_KEYS),
+               **{k: {"graphs": results[name][k], "eager": eager[name][k]}
+                  for k in FAS_GRAPH_KEYS + ("ms_per_iteration", "wall_s")},
+               "captures": results[name]["captures"], "capture_s": results[name]["capture_s"],
+               "graph_bytes": results[name]["graph_bytes"]}
+        for name in results}
+
+    # The champion's cycle alone: device ms per cycle from graph replays
+    # (utils/timing.per_cycle_time) and the wall ms of an eager cycle,
+    # beside its ms per iteration inside the stage solve.
+    champion = artifact_expression(problem, FAS_CHAMPION, False, failures)
+    step = CycleLowering(torch.float32, DEVICE).lower(champion)
+    u0, f0 = problem.initial_state(torch.float32, device=DEVICE)
+    cycle_alone = {
+        "device_ms_graph_replays": 1e3 * per_cycle_time(step, u0, f0, iters=5, repeats=3),
+        "wall_ms_eager": 1e3 * wall_cycle_time(step, u0, f0, iters=5, repeats=3),
+        "in_stage_ms_per_iteration": {
+            mode: r["champion"]["ms_per_iteration"] for mode, r in (("graphs", results),
+                                                                     ("eager", eager))},
+    }
 
     # Twenty textbook Newton cycles on the card from the zero guess.
     newton = artifact_expression(problem, FAS_TEXTBOOKS["newton"], False, failures)
@@ -1336,11 +1399,17 @@ def phase_fas(failures: list) -> int:
     launched = check_no_launch(failures, "fas")
     results["champion_on_cpu"] = grammar_entry_evaluation(problem, "cpu", FAS_CHAMPION)
     emit({"phase": "fas", "levels": [5, 9], "dtype": "float32", **results,
+          "graphs_vs_eager": graph_vs_eager, "champion_cycle_alone": cycle_alone,
           "newton_20_cycles": {"max_error": error, "wall_s": cycles_s,
                                "ms_per_cycle": cycles_s * 1e3 / 20},
           "rb_sweep_launches": launched, "phase_s": time.perf_counter() - start})
     for name, result in results.items():
         check_contracts(failures, f"fas {name}", result)
+    for name, pair in graph_vs_eager.items():
+        if not pair["equal"]:
+            failures.append(f"fas {name}: on graphs and eagerly {pair}")
+        if not pair["captures"] > 0:
+            failures.append(f"fas {name}: captured no graph on the card")
     for name in FAS_TEXTBOOKS:
         if not results["champion"]["rho"] < results[f"textbook_{name}"]["rho"]:
             failures.append(f"fas: champion rho {results['champion']['rho']} does not beat the "
@@ -1399,11 +1468,13 @@ def phase_fas_evolve(failures: list) -> int:
 
     start = time.perf_counter()
     rb_sweep.launches.clear()
+    before = graphs.counters.as_dict()
     TorchProgramGenerator.generate_and_evaluate = recording
     try:
         result = torch_optimize.run(FAS_EVOLVE_ARGS)
     finally:
         TorchProgramGenerator.generate_and_evaluate = evaluate
+    after = graphs.counters.as_dict()
     optimizer, generator = result.optimizer, result.generator
     best = result.halls_of_fame[-1][0]
     expr = optimizer.compile_individual(best)[0]
@@ -1415,6 +1486,12 @@ def phase_fas_evolve(failures: list) -> int:
         "phase": "fas_evolve", "args": " ".join(FAS_EVOLVE_ARGS[:-2]),
         "evaluations": evaluations, "evolution_s": result.evolution_s,
         "evals_per_hour": evaluations / result.evolution_s * 3600.0,
+        # The per-structure FAS stage graphs (captured during the run).
+        "graphs": {"captures": after["captures"] - before["captures"],
+                   "capture_s": after["capture_s"] - before["capture_s"],
+                   "capture_share_of_wall": (after["capture_s"] - before["capture_s"])
+                   / result.evolution_s,
+                   "bytes_held": generator.graph_cache.bytes_held},
         "vm_stats": generator.vm_stats(),
         "best": {"fitness": list(best.fitness_values),
                  "during": list(during) if during else None, "reevaluated": list(again)},
@@ -1467,7 +1544,7 @@ PAPER_CHAMPION = os.path.join(ARTIFACTS, "paper_protocol", "individual_1_tuned.t
 # --repeats cut from the script's 9 to 3 to fit this script's time limit.
 HEADLINE_ARGS = [
     "--min-level", "6", "--max-level", "10", "--predicted", "--repeats", "3",
-    "--champion", PAPER_CHAMPION,
+    "--champion", PAPER_CHAMPION, "--compare-eager",
     "--json", os.path.join(ROOT, "chiprun_out", "headline_1023.json"),
 ]
 # RESULTS.md R5.8: scripts/headline_1024.py --predicted on one TPU v5e.  A
@@ -1483,9 +1560,10 @@ TPU_R58 = {
 HEADLINE_LEVELS = [(127, 127), (255, 255), (511, 511), (1023, 1023)]
 
 
-def _textbook_solver(problem, pre, post, device, **kwargs):
-    """staged_solver_for_expression on textbook V(pre, post): (solve, f32
-    right-hand side, f64 right-hand side, ρ or None)."""
+def _textbook_solver(problem, pre, post, device, lowering=CycleLowering, **kwargs):
+    """staged_solver_for_expression on textbook V(pre, post), its float32
+    cycle lowered by `lowering`: (solve, f32 right-hand side, f64
+    right-hand side, ρ or None)."""
     pset, terminal_list = generate_primitive_set(
         problem.approximation(), problem.rhs(), problem.dimension,
         problem.coarsening_factors, problem.max_level, problem.equations,
@@ -1498,27 +1576,49 @@ def _textbook_solver(problem, pre, post, device, **kwargs):
         rho = generator.generate_and_evaluate(expr, evaluation_samples=1)[1]
         kwargs.update(rho=rho, calibrate_floor=True)
     solve, f64_rhs = staged_solver_for_expression(
-        CycleLowering(torch.float32, device), expr, terminal_list[0].operator, problem,
+        lowering(torch.float32, device), expr, terminal_list[0].operator, problem,
         generator, lowering64=CycleLowering(torch.float64, device, use_kernels=False),
         target=1e-10, **kwargs)
     _, f32 = problem.initial_state(torch.float32, device=device)
     return solve, f32, f64_rhs, rho
 
 
+def _solve_walls(solve, f32, f64_rhs, repeats: int = 3) -> tuple:
+    """(result, wall ms of the first solve, min and median wall ms of
+    `repeats` more)."""
+    t0 = time.perf_counter()
+    result = solve(f32, f64_rhs)
+    first = time.perf_counter() - t0
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        result = solve(f32, f64_rhs)
+        times.append(time.perf_counter() - t0)
+    times.sort()
+    return result, 1e3 * first, 1e3 * times[0], 1e3 * times[len(times) // 2]
+
+
 def phase_headline(failures: list) -> dict:
-    """scripts/torch_headline_1024.py at 1023² (levels 6-10) with --predicted:
-    textbook V(2,1), V(2,2) and the paper champion with its stored ω; then
-    one fused V(2,2) solve with no ρ (build_fused_staged_solver).  Returns
-    the kernel's launches by grid shape over both.  Then, outside that
-    count, a predicted V(2,2) at 255² on the card and on the CPU."""
+    """scripts/torch_headline_1024.py at 1023² (levels 6-10) with --predicted
+    and --compare-eager: textbook V(2,1), V(2,2) and the paper champion with
+    its stored ω, each solved on CUDA graphs (the default) and with
+    cuda_graphs=False; then the fused V(2,2) with no ρ
+    (build_fused_staged_solver) both ways.  Returns the kernel's launches
+    by grid shape over all of them.  Then, outside that count, a predicted
+    V(2,2) at 255² on the card and on the CPU."""
     start = time.perf_counter()
     rb_sweep.launches.clear()
     rows = torch_headline_1024.run(HEADLINE_ARGS)
     problem = poisson_2d(min_level=6, max_level=10, dtype=torch.float32)
-    solve, f32, f64_rhs, _ = _textbook_solver(problem, 2, 2, DEVICE, fused=True)
-    t0 = time.perf_counter()
-    fused = solve(f32, f64_rhs)
-    fused_wall_s = time.perf_counter() - t0
+    fused = {}
+    for mode in (True, False):
+        solve, f32, f64_rhs, _ = _textbook_solver(problem, 2, 2, DEVICE, fused=True,
+                                                  cuda_graphs=mode)
+        (cycles, rel, stages), first, t_min, t_med = _solve_walls(solve, f32, f64_rhs)
+        fused["graphs" if mode else "eager"] = {
+            "cycles": cycles, "rel": rel, "stages": stages, "first_wall_ms": first,
+            "wall_min_ms": t_min, "wall_med_ms": t_med, **solve.graphs}
+        del solve
     torch.cuda.synchronize()
     by_shape = dict(rb_sweep.launches)
 
@@ -1534,8 +1634,7 @@ def phase_headline(failures: list) -> dict:
         "phase": "headline", "args": " ".join(HEADLINE_ARGS[:-2]),
         "rows": rows,
         "tpu_r58_cross_check": TPU_R58,
-        "fused_v22": {"cycles": fused[0], "rel": fused[1], "stages": fused[2],
-                      "wall_s": fused_wall_s},
+        "fused_v22": fused,
         "predicted_v22_255": repeats,
         "rb_sweep_launches_by_shape": {f"{r}x{c}": n for (r, c), n in sorted(by_shape.items())},
         "phase_s": time.perf_counter() - start,
@@ -1545,10 +1644,18 @@ def phase_headline(failures: list) -> dict:
             failures.append(f"headline {row['solver']}: rel {row['rel_residual']} > 1e-10")
         if not (math.isfinite(row["t_cycle_us"]) and row["t_cycle_us"] > 0):
             failures.append(f"headline {row['solver']}: device time per cycle {row['t_cycle_us']}")
+        if not (row["captures"] > 0 and row["eager"]["bitwise_equal"]):
+            failures.append(f"headline {row['solver']}: {row['captures']} captures; on graphs "
+                            f"{(row['cycles'], row['rel_residual'], row['stages'])}, eagerly "
+                            f"{row['eager']}")
     if len(rows) != 3:
         failures.append(f"headline: {len(rows)} solvers instead of 3")
-    if not fused[1] <= 1e-10:
-        failures.append(f"headline: fused V(2,2) rel {fused[1]} > 1e-10")
+    graph, eager = fused["graphs"], fused["eager"]
+    if not graph["rel"] <= 1e-10:
+        failures.append(f"headline: fused V(2,2) rel {graph['rel']} > 1e-10")
+    if not (graph["captures"] > 0 and all(graph[k] == eager[k]
+                                          for k in ("cycles", "rel", "stages"))):
+        failures.append(f"headline: fused V(2,2) on graphs {graph}, eagerly {eager}")
     for shape in HEADLINE_LEVELS:
         if not by_shape.get(shape):
             failures.append(f"headline: no kernel launch at {shape[0]}x{shape[1]}")
@@ -1575,7 +1682,6 @@ def phase_models(failures: list, champion_rho: float) -> None:
     against their device time on the card (within 2×)."""
     from evostencils_torch.models.lfa import ConvergenceEvaluator
     from evostencils_torch.models.roofline import PerformanceEvaluator
-    from evostencils_torch.utils.timing import per_cycle_time
 
     start = time.perf_counter()
     record = {"phase": "models"}
@@ -2380,12 +2486,15 @@ def phase_mesh(failures: list, helmholtz_k80: dict) -> int:
 # (c) of the graphs phase, in a child process so that the failed capture
 # leaves nothing behind in this one: the champion through a lowering whose
 # operator reads one value to the host, eagerly (harmless) and on graphs
-# (must raise CudaGraphError, never score).  One JSON line.
+# (must raise CudaGraphError, never score); then a staged solver at 255²
+# whose cycle reads one value to the host, eagerly (it solves) and on
+# graphs (must raise CudaGraphError).  One JSON line.
 _GRAPH_REFUSAL = """
 import json, torch
 from evostencils_torch import CudaGraphError
 from evostencils_torch.backend import graphs
 from evostencils_torch.backend.evaluation import TorchProgramGenerator
+from evostencils_torch.backend.lowering import CycleLowering
 from evostencils_torch.problems.poisson import poisson_2d
 import chip_smoke
 
@@ -2410,6 +2519,27 @@ for mode in (False, True):
     except CudaGraphError as err:
         record[str(mode)] = {"raised": type(err).__name__, "message": str(err)[:400]}
 record["counters"] = graphs.counters.as_dict()
+
+class ReadingLowering(CycleLowering):
+    def lower(self, expression):
+        step = super().lower(expression)
+        def reading(u, f):
+            out = step(u, f)
+            float(out[0].sum())  # a host read inside the cycle
+            return out
+        return reading
+
+graphs.counters.reset()
+problem = poisson_2d(min_level=4, max_level=8, dtype=torch.float32)
+for mode in (False, True):
+    try:
+        solve, f32, f64_rhs, _ = chip_smoke._textbook_solver(
+            problem, 2, 2, "cuda", fused=True, cuda_graphs=mode, lowering=ReadingLowering)
+        record["staged_" + str(mode)] = {"returned": list(solve(f32, f64_rhs))}
+    except CudaGraphError as err:
+        record["staged_" + str(mode)] = {"raised": type(err).__name__,
+                                         "message": str(err)[:400]}
+record["staged_counters"] = graphs.counters.as_dict()
 print(json.dumps(record), flush=True)
 """
 
@@ -2532,7 +2662,10 @@ def phase_graphs(failures: list, graph_mode: dict, evolve: dict, helmholtz_k80: 
                         f"{(proc.stdout + proc.stderr)[-1500:]}")
     elif not (refusal["True"].get("raised") == "CudaGraphError"
               and "returned" in refusal["False"]
-              and refusal["counters"]["capture_failures"] == 1):
+              and refusal["counters"]["capture_failures"] == 1
+              and refusal["staged_True"].get("raised") == "CudaGraphError"
+              and refusal["staged_False"].get("returned", [0, 1.0])[1] <= 1e-10
+              and refusal["staged_counters"]["capture_failures"] == 1):
         failures.append(f"graphs: a body that reads to the host gave {refusal}")
     record["phase_s"] = time.perf_counter() - start
     emit(record)

@@ -9,80 +9,154 @@ compound, s stages reach ~(stage floor)^s, far below 1e-10.  The final
 verdict is the exact host IEEE-f64 residual (`generator._host_residual`).
 
 The reference compiles each stage into one XLA `while_loop` and emulates
-float64 on the TPU (double-single, floor ~1.5e-10).  Here the loops run on
-the host around eager torch cycles:
-  * the reactive stage (`_stage_loop`) reads its float32 residual norm once
-    a cycle (`.item()`) and decides in float32, as the reference's device
-    loop does, so the executed count and the exit reason match;
-  * the predicted stage queues its k cycles with no sync and reads one norm
-    per stage;
-  * the fused and predicted solvers restart from a residual computed in
-    native float64 on the tensors' device through a float64 lowering (the
-    H100 has IEEE float64; no emulation), then verify, and if needed
-    polish, against the exact host residual as the reference does.
+float64 on the TPU (double-single, floor ~1.5e-10).  Here the device work
+of a solve is a handful of bodies on static buffers (`StagedLoop`), which a
+card captures in CUDA graphs once per solver (backend/graphs.py) and
+replays, while the host keeps the loops' control:
+  * the cycle: the lowered float32 step as a graphs.StepCycle on the
+    static iterate `e` and stage right-hand side `fs`;
+  * the reactive stage (`_reactive_stage`): `start` (e ← 0, rn ← ‖fs‖),
+    then per cycle the cycle and `post` (rn ← ‖fs − A₃₂·e‖); the host reads
+    one float32 norm a cycle and decides in float32, as the reference's
+    device loop does, so the executed count and the exit reason match;
+  * the predicted stage: `start`, then k replays of the cycle with no read
+    between them (k changes from stage to stage; the graph does not);
+  * the float64 restart: `begin` (u64 ← 0, fs ← f64) and `restart` (u64 +=
+    e, r64 ← f64 − A₆₄·u64 in native float64 on the tensors' device, the
+    H100 has IEEE float64, fs ← r64 in float32), one norm read per stage;
+  * the verdict from the exact host IEEE-f64 residual, and the polish
+    stages when the device loop stopped short, whose right-hand side is
+    copied into `fs` outside any body, as the reference does on its host.
 
 Each inner stage stops on any of: stage-target hit, stall (no residual
 improvement across a cycle — the f32 floor), iteration cap, divergence.
 
-These solvers stay eager: the fitness's CUDA graphs (backend/graphs.py)
-cover the generator's stage, power and outer loops only, and these
-staged solvers under graphs are a later item (ROADMAP Queue 1).  Their
-device time per cycle comes from utils/timing.py's captured cycle.
+`staged_solver_for_expression(..., cuda_graphs=None)` runs on graphs on a
+card and eagerly on the CPU, as TorchProgramGenerator does;
+`cuda_graphs=False` runs the same bodies eagerly, so the two give the same
+cycles, stages and residuals.  A body that cannot be captured raises
+CudaGraphError: it never runs eagerly in its place.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from typing import Callable, Tuple
 
 import numpy as np
 import torch
 
 from evostencils_torch import numpy_dtype
+from evostencils_torch.backend import graphs
 from evostencils_torch.ops.stencil_ops import l2_norm as _l2
+
+# Eager calls of each body before its capture, as utils/timing.py's: they
+# fill the lowerings' lazily built device caches (dense coarse solves,
+# red-black masks, inverses) before the capture.
+CAPTURE_WARMUP = 3
 
 
 def _host_l2(state) -> float:
     return float(np.sqrt(sum(np.sum(np.abs(np.asarray(x)) ** 2) for x in state)))
 
 
-def _to_device(host_state, dtype, device):
-    return tuple(
-        torch.from_numpy(np.ascontiguousarray(x, dtype=numpy_dtype(dtype))).to(device)
-        for x in host_state
-    )
-
-
 def _to_host64(state):
     return tuple(x.detach().cpu().numpy().astype(np.float64) for x in state)
 
 
-def _stage_loop(step, apply_a32, shapes, inner_cap, stall_ratio, stage_reduction=None,
-                device="cuda"):
-    """The shared f32 inner-stage recurrence: smooth the error equation
-    A·e = r from zero until the stage target (when `stage_reduction` is
-    given), the iteration cap, divergence, or a stall (per-cycle
-    improvement worse than `stall_ratio`).  Returns run(fs, rs0) ->
-    (e, k, rn, prev_rn) — the single source of truth for the stopping
-    semantics used by both staged solvers and the floor probe.  `rs0` and
-    the norms are float32 host scalars, compared in float32."""
+def _copy_host(dst, host_state) -> None:
+    """Host arrays into the static tensors `dst`, cast on the host to their
+    dtype: a copy outside every body."""
+    for d, x in zip(dst, host_state):
+        d.copy_(torch.from_numpy(np.ascontiguousarray(x, dtype=numpy_dtype(d.dtype))))
+
+
+class StagedLoop(graphs.Loop):
+    """The device side of a staged solve on static buffers: the cycle
+    (graphs.StepCycle on the iterate `e` and the stage right-hand side
+    `fs`), the stage's bodies `start` and `post`, and, with `apply_a64`,
+    the float64 restart's `begin` and `restart` on `u64` and `f64`.  `rn`
+    and `rn64` hold the last float32 and float64 norms, which the host
+    reads.  `step(u, f) -> u` is one lowered float32 cycle."""
+
+    def __init__(self, step, apply_a32, shapes, device, apply_a64=None):
+        super().__init__()
+        like = tuple(torch.zeros(s, dtype=torch.float32, device=device) for s in shapes)
+        self.cycle = graphs.StepCycle(lambda u, f, _omegas: step(u, f), (), like)
+        self.e, self.fs = self.cycle.u, self.cycle.f
+        self.apply_a32, self.apply_a64 = apply_a32, apply_a64
+        self.rn = torch.zeros((), dtype=torch.float32, device=device)
+        self.bodies = ("start", "post")
+        if apply_a64 is not None:
+            self.bodies += ("begin", "restart")
+            self.u64 = tuple(torch.zeros(s, dtype=torch.float64, device=device) for s in shapes)
+            self.f64 = tuple(torch.zeros_like(x) for x in self.u64)
+            self.rn64 = torch.zeros((), dtype=torch.float64, device=device)
+
+    def parts(self) -> tuple:
+        return (self.cycle,)
+
+    def start(self) -> None:
+        for x in self.e:
+            x.zero_()
+        self.rn.copy_(_l2(self.fs))
+
+    def post(self) -> None:
+        self.rn.copy_(_l2(tuple(f - a for f, a in zip(self.fs, self.apply_a32(self.e)))))
+
+    def begin(self) -> None:
+        for u in self.u64:
+            u.zero_()
+        for d, f in zip(self.fs, self.f64):
+            d.copy_(f.to(torch.float32))
+        self.rn64.copy_(_l2(self.f64))
+
+    def restart(self) -> None:
+        for u, x in zip(self.u64, self.e):
+            u.add_(x.to(torch.float64))
+        r64 = tuple(f - a for f, a in zip(self.f64, self.apply_a64(self.u64)))
+        for d, r in zip(self.fs, r64):
+            d.copy_(r.to(torch.float32))
+        self.rn64.copy_(_l2(r64))
+
+
+def _reactive_stage(loop, inner_cap, stall_ratio, stage_reduction=None):
+    """The shared f32 inner-stage recurrence on `loop.fs`: smooth the error
+    equation A·e = r from zero until the stage target (when
+    `stage_reduction` is given), the iteration cap, divergence, or a stall
+    (per-cycle improvement worse than `stall_ratio`).  Returns run() ->
+    (k, rs0, rn, prev_rn), the iterate left in `loop.e` — the single source
+    of truth for the stopping semantics used by both staged solvers and the
+    floor probe.  `rs0` and the norms are float32 host scalars, compared in
+    float32."""
     f32 = np.float32
 
-    def run(fs, rs0):
-        e = tuple(torch.zeros(s, dtype=torch.float32, device=device) for s in shapes)
-        k, rn, prev = 0, f32(rs0), f32(np.inf)
+    def run():
+        loop.run("start")
+        rs0 = f32(loop.rn.item())
+        k, rn, prev = 0, rs0, f32(np.inf)
         while True:
             improving = k < 2 or rn < f32(stall_ratio) * prev
             keep = k < inner_cap and bool(np.isfinite(rn)) and improving
             if stage_reduction is not None:
                 keep = keep and rn > f32(stage_reduction) * f32(rs0)
             if not keep:
-                return e, k, rn, prev
-            e = step(e, fs)
-            new_rn = f32(_l2(tuple(f - a for f, a in zip(fs, apply_a32(e)))).item())
-            k, rn, prev = k + 1, new_rn, rn
+                return k, rs0, rn, prev
+            loop.cycle.run_cycle()
+            loop.run("post")
+            k, rn, prev = k + 1, f32(loop.rn.item()), rn
 
     return run
+
+
+def _host_stage(loop, run, r_host):
+    """One reactive stage on the float32 cast of the host residual
+    `r_host`: (e in host float64, executed cycles, the stage's
+    reduction)."""
+    _copy_host(loop.fs, (np.asarray(x, np.float32) for x in r_host))
+    k, rs0, rn, _ = run()
+    return _to_host64(loop.e), k, rn / rs0
 
 
 def build_staged_solver(
@@ -96,23 +170,24 @@ def build_staged_solver(
     max_stages: int = 10,
     stall_ratio: float = 0.9,
     device="cuda",
+    loop=None,
 ):
     """Returns (solve, stage): solve(f32_rhs, f64_rhs_np) -> (cycles,
-    rel_res, stages).
+    rel_res, stages); stage(r_host) -> (e_host64, executed, reduction).
 
     `step(u, f) -> u` is one lowered f32 cycle on field tuples;
     `apply_a32` applies the finest operator in f32 (per-cycle residual
     norms, matching the reference solvers' per-iteration residual
     prints); `host_residual(u64_np_tuple) -> r64_np_tuple` computes
     f − A·u in true host f64.  Every stage restarts from the host f64
-    residual."""
+    residual.  `loop`: a StagedLoop of the same step (captured or not),
+    else a new eager one."""
+    loop = loop or StagedLoop(step, apply_a32, shapes, device)
+    run = _reactive_stage(loop, inner_cap, stall_ratio, stage_reduction)
 
-    run = _stage_loop(step, apply_a32, shapes, inner_cap, stall_ratio, stage_reduction, device)
-
-    def stage(fs):
-        rs0 = np.float32(_l2(fs).item())
-        e, k, rn, _ = run(fs, rs0)
-        return e, k, rn / rs0
+    def stage(r_host):
+        with loop.lock:
+            return _host_stage(loop, run, r_host)
 
     def solve(f32_rhs, f64_rhs_np):
         r64 = tuple(np.asarray(x, np.float64) for x in f64_rhs_np)
@@ -122,11 +197,10 @@ def build_staged_solver(
         stages = 0
         rel = 1.0
         while rel > target and stages < max_stages and cycles < 1000:
-            fs = _to_device((x.astype(np.float32) for x in r64), torch.float32, device)
-            e, kk, _ = stage(fs)
+            e, kk, _ = stage(r64)
             if kk == 0:
                 break
-            u64 = tuple(u + x for u, x in zip(u64, _to_host64(e)))
+            u64 = tuple(u + x for u, x in zip(u64, e))
             r64 = host_residual(u64)
             cycles += kk
             stages += 1
@@ -139,31 +213,29 @@ def build_staged_solver(
     return solve, stage
 
 
-def _device_restart_loop(inner, apply_a64, f64_dev, shapes, target, max_stages, device,
-                         k0=None, next_k=None):
-    """The outer loop both device-restart solvers share: while rel > target,
-    rel improves, stages < max_stages and cycles < 500, run one inner stage
-    on the float32 cast of the float64 residual and restart from
-    r = f − A·u in float64 on the device.  `inner(fs, k) -> (e, executed)`;
-    with `next_k`, k is set from each stage's reduction.  One norm is read
-    per stage.  Returns (u64, cycles, stages)."""
-    r0 = _l2(f64_dev).item()
-    u64 = tuple(torch.zeros(s, dtype=torch.float64, device=device) for s in shapes)
-    r64 = tuple(f64_dev)
+def _device_restart_loop(loop, inner, target, max_stages, k0=None, next_k=None):
+    """The outer loop both device-restart solvers share, from `loop.f64`:
+    while rel > target, rel improves, stages < max_stages and cycles < 500,
+    run one inner stage on the float32 cast of the float64 residual in
+    `loop.fs` and restart from r = f − A·u in float64 on the device.
+    `inner(k) -> executed`; with `next_k`, k is set from each stage's
+    reduction.  One norm is read per stage.  Returns (cycles, stages); the
+    iterate is `loop.u64`."""
+    loop.run("begin")
+    r0 = loop.rn64.item()
     cycles, stages, k = 0, 0, k0
     prev_rel = math.inf
-    rel = _l2(r64).item() / r0
+    rel = r0 / r0  # the residual of the zero guess is f
     while rel > target and rel < prev_rel and stages < max_stages and cycles < 500:
-        e, executed = inner(tuple(x.to(torch.float32) for x in r64), k)
-        u64 = tuple(u + x.to(torch.float64) for u, x in zip(u64, e))
-        r64 = tuple(f - a for f, a in zip(f64_dev, apply_a64(u64)))
-        new_rel = _l2(r64).item() / r0
+        executed = inner(k)
+        loop.run("restart")
+        new_rel = loop.rn64.item() / r0
         if next_k is not None:
             k = next_k(rel, new_rel, executed)
         cycles += executed
         stages += 1
         prev_rel, rel = rel, new_rel
-    return u64, cycles, stages
+    return cycles, stages
 
 
 def build_fused_staged_solver(
@@ -178,56 +250,44 @@ def build_fused_staged_solver(
     max_stages: int = 8,
     stall_ratio: float = 0.9,
     device="cuda",
+    loop=None,
 ):
     """Staged solve with every restart on the device: reactive f32 stages,
     each restarted from the float64 residual computed on the device.  The
     outer loop stops on target, stage cap, cycle cap, or no inter-stage
     progress.  The host then verifies against the TRUE IEEE-f64 residual
     and, if the device stopped short of the target, polishes with
-    host-restart stages.
+    host-restart stages on the same bodies.
 
     Returns solve(f32_rhs, f64_rhs_np) -> (cycles, rel_true, stages)."""
+    loop = loop or StagedLoop(step, apply_a32, shapes, device, apply_a64)
+    run_stage = _reactive_stage(loop, inner_cap, stall_ratio, stage_reduction)
 
-    run_stage = _stage_loop(step, apply_a32, shapes, inner_cap, stall_ratio, stage_reduction,
-                            device)
-
-    def inner(fs, _k):
-        rs0 = np.float32(_l2(fs).item())
-        e, k, _, _ = run_stage(fs, rs0)
-        return e, k
-
-    polish_stage = None
+    def inner(_k):
+        return run_stage()[0]
 
     def solve(f32_rhs, f64_rhs_np):
-        nonlocal polish_stage
-        f64_dev = _to_device(f64_rhs_np, torch.float64, device)
-        u64, cycles, stages = _device_restart_loop(
-            inner, apply_a64, f64_dev, shapes, target, max_stages, device)
-        u_host = _to_host64(u64)
-        r_true = host_residual(u_host)
-        r0 = _host_l2(tuple(np.asarray(x, np.float64) for x in f64_rhs_np))
-        rel = _host_l2(r_true) / r0
-        # Host-restart polish when the device loop stopped short of the
-        # target.
-        while rel > target and stages < max_stages and cycles < 1000:
-            if polish_stage is None:
-                _, polish_stage = build_staged_solver(
-                    step, apply_a32, host_residual, shapes,
-                    target=target, stage_reduction=stage_reduction,
-                    inner_cap=inner_cap, stall_ratio=stall_ratio, device=device,
-                )
-            fs = _to_device((np.asarray(x, np.float32) for x in r_true), torch.float32, device)
-            e, kk, _ = polish_stage(fs)
-            if kk == 0:
-                break
-            u_host = tuple(u + x for u, x in zip(u_host, _to_host64(e)))
+        with loop.lock:
+            _copy_host(loop.f64, f64_rhs_np)
+            cycles, stages = _device_restart_loop(loop, inner, target, max_stages)
+            u_host = _to_host64(loop.u64)
             r_true = host_residual(u_host)
-            cycles += kk
-            stages += 1
-            new_rel = _host_l2(r_true) / r0
-            if new_rel >= rel:
-                break
-            rel = new_rel
+            r0 = _host_l2(tuple(np.asarray(x, np.float64) for x in f64_rhs_np))
+            rel = _host_l2(r_true) / r0
+            # Host-restart polish when the device loop stopped short of the
+            # target.
+            while rel > target and stages < max_stages and cycles < 1000:
+                e, kk, _ = _host_stage(loop, run_stage, r_true)
+                if kk == 0:
+                    break
+                u_host = tuple(u + x for u, x in zip(u_host, e))
+                r_true = host_residual(u_host)
+                cycles += kk
+                stages += 1
+                new_rel = _host_l2(r_true) / r0
+                if new_rel >= rel:
+                    break
+                rel = new_rel
         return cycles, rel, stages
 
     return solve
@@ -240,8 +300,10 @@ def build_floor_probe(
     inner_cap: int = 60,
     stall_ratio: float = 0.95,
     device="cuda",
+    loop=None,
 ):
-    """One f32 stage run to stall: probe(fs) -> (k, floor_rel).
+    """One f32 stage run to stall: probe(fs) -> (k, floor_rel), `fs` a
+    float32 state on any device.
 
     The f32 stage floor is operator- AND cycle-dependent (it scales with
     the rounding noise the cycle injects at the 1/h² operator scale), so
@@ -249,12 +311,14 @@ def build_floor_probe(
     probe measures the achieved stage reduction at stall (<5 %/cycle
     improvement) so the predicted staged solver can size stages to the
     REAL floor."""
-
-    run = _stage_loop(step, apply_a32, shapes, inner_cap, stall_ratio, device=device)
+    loop = loop or StagedLoop(step, apply_a32, shapes, device)
+    run = _reactive_stage(loop, inner_cap, stall_ratio)
 
     def probe(fs):
-        rs0 = np.float32(_l2(fs).item())
-        _, k, rn, prev = run(fs, rs0)
+        with loop.lock:
+            for d, x in zip(loop.fs, fs):
+                d.copy_(x)
+            k, rs0, rn, prev = run()
         return k, min(rn, prev) / rs0
 
     return probe
@@ -288,6 +352,7 @@ def build_predicted_staged_solver(
     inner_cap: int = 40,
     max_stages: int = 12,
     device="cuda",
+    loop=None,
 ):
     """Predicted-cycle staged solve: each stage runs EXACTLY k cycles,
     k = ceil(log(floor)/log(ρ)) + 1 at first — no per-cycle residual
@@ -300,7 +365,7 @@ def build_predicted_staged_solver(
     burns ~2 extra cycles per stage on every solver.  With the measured
     asymptotic ρ (the power iteration the evaluation harness already
     runs), the stage length is known a priori; cycles to target then scale
-    with 1/log(ρ).  Here a stage queues its k cycles with no sync and
+    with 1/log(ρ).  Here a stage replays its k cycles with no read and
     reads one norm."""
     rho = float(min(max(rho, 1e-6), 0.95))
     # Initial stage length: one extra cycle absorbs the per-restart
@@ -308,37 +373,35 @@ def build_predicted_staged_solver(
     # the first cycle contracts ~0.5, not ρ).
     k_stage = int(np.clip(np.ceil(np.log(floor_estimate) / np.log(rho)) + 1, 2, inner_cap))
     next_k = _next_stage_length(math.log(floor_estimate), target, inner_cap)
+    loop = loop or StagedLoop(step, apply_a32, shapes, device, apply_a64)
 
-    def run_k(fs, k):
-        e = tuple(torch.zeros(s, dtype=torch.float32, device=device) for s in shapes)
+    def inner(k):
+        loop.run("start")
         for _ in range(k):
-            e = step(e, fs)
-        return e
-
-    def inner(fs, k):
-        return run_k(fs, k), k
+            loop.cycle.run_cycle()
+        return k
 
     def solve(f32_rhs, f64_rhs_np):
-        f64_dev = _to_device(f64_rhs_np, torch.float64, device)
-        u64, cycles, stages = _device_restart_loop(
-            inner, apply_a64, f64_dev, shapes, target, max_stages, device,
-            k0=k_stage, next_k=next_k)
-        u_host = _to_host64(u64)
-        r_true = host_residual(u_host)
-        r0 = _host_l2(tuple(np.asarray(x, np.float64) for x in f64_rhs_np))
-        rel = _host_l2(r_true) / r0
-        # Host-restart polish when the device loop stopped short.
-        while rel > target and stages < max_stages + 4 and cycles < 1000:
-            fs = _to_device((np.asarray(x, np.float32) for x in r_true), torch.float32, device)
-            e = run_k(fs, k_stage)
-            u_host = tuple(u + x for u, x in zip(u_host, _to_host64(e)))
+        with loop.lock:
+            _copy_host(loop.f64, f64_rhs_np)
+            cycles, stages = _device_restart_loop(
+                loop, inner, target, max_stages, k0=k_stage, next_k=next_k)
+            u_host = _to_host64(loop.u64)
             r_true = host_residual(u_host)
-            cycles += k_stage
-            stages += 1
-            new_rel = _host_l2(r_true) / r0
-            if new_rel >= rel:
-                break
-            rel = new_rel
+            r0 = _host_l2(tuple(np.asarray(x, np.float64) for x in f64_rhs_np))
+            rel = _host_l2(r_true) / r0
+            # Host-restart polish when the device loop stopped short.
+            while rel > target and stages < max_stages + 4 and cycles < 1000:
+                _copy_host(loop.fs, (np.asarray(x, np.float32) for x in r_true))
+                inner(k_stage)
+                u_host = tuple(u + x for u, x in zip(u_host, _to_host64(loop.e)))
+                r_true = host_residual(u_host)
+                cycles += k_stage
+                stages += 1
+                new_rel = _host_l2(r_true) / r0
+                if new_rel >= rel:
+                    break
+                rel = new_rel
         return cycles, rel, stages
 
     return solve
@@ -356,6 +419,7 @@ def staged_solver_for_expression(
     lowering64=None,
     rho=None,
     calibrate_floor=False,
+    cuda_graphs=None,
     **kwargs,
 ):
     """Wire a staged solver from a lowered cycle expression; returns
@@ -364,12 +428,23 @@ def staged_solver_for_expression(
     `operator` is the finest-level system operator (from the grammar
     terminals); `omegas` optionally overrides relaxation factors via the
     ω-parameterized lowering (for gradient-tuned champions; it goes to the
-    device once, as float32); `generator` (a TorchProgramGenerator)
-    provides the exact host-f64 residual.  With `rho` the predicted solver
-    (and with `calibrate_floor` its floor probe, whose result is
-    `solve.measured_floor`), else with `fused` the device-restart solver,
-    else the host-restart one.  The device is the lowering's."""
+    device once, as a static float32 tensor); `generator` (a
+    TorchProgramGenerator) provides the exact host-f64 residual.  With
+    `rho` the predicted solver (and with `calibrate_floor` its floor probe,
+    whose result is `solve.measured_floor`), else with `fused` the
+    device-restart solver, else the host-restart one.  The device is the
+    lowering's.
+
+    `cuda_graphs` (default: on a card) captures the solver's bodies and its
+    cycle once, here, into one pool, and every solve replays them; False
+    runs the same bodies eagerly; True off a card raises ValueError.
+    `solve.graphs` holds the captures, their seconds and the bytes the
+    pool and the static buffers hold (zeros when eager)."""
     device = lowering32.device
+    if cuda_graphs is None:
+        cuda_graphs = device.type == "cuda"
+    if cuda_graphs and device.type != "cuda":
+        raise ValueError(f"cuda_graphs: no CUDA graphs on {device}")
     if omegas is not None:
         pstep, _ = lowering32.lower_parameterized(expression)
         om = torch.as_tensor(omegas, dtype=torch.float32).to(device)
@@ -392,26 +467,36 @@ def staged_solver_for_expression(
     def apply_a64(u):
         return (lowering64 or lowering32).system_apply(operator, u)
 
+    restarts_on_device = rho is not None or fused
+    loop = StagedLoop(step, apply_a32, shapes, device,
+                      apply_a64 if restarts_on_device else None)
+    stats = {"captures": 0, "capture_s": 0.0, "bytes": 0}
+    if cuda_graphs:
+        t0 = time.perf_counter()
+        loop.capture_bodies(warmup=CAPTURE_WARMUP)
+        stats = {"captures": loop.captures, "capture_s": time.perf_counter() - t0,
+                 "bytes": loop.nbytes}
+
     if rho is not None:
         measured_floor = None
         if calibrate_floor:
-            probe = build_floor_probe(step, apply_a32, shapes, device=device)
-            fs0 = _to_device((np.asarray(x, np.float32) for x in f64_rhs), torch.float32, device)
-            _, floor = probe(fs0)
+            probe = build_floor_probe(step, apply_a32, shapes, device=device, loop=loop)
+            _, floor = probe(tuple(torch.from_numpy(np.asarray(x, np.float32)) for x in f64_rhs))
             measured_floor = float(floor)
             # 2× margin: stage targets sit just above the stall point,
             # where the marginal cycles still contract near ρ.
             kwargs["floor_estimate"] = min(2.0 * measured_floor, 5e-3)
 
         solve = build_predicted_staged_solver(
-            step, apply_a32, apply_a64, host_residual, shapes, rho=rho, device=device, **kwargs)
+            step, apply_a32, apply_a64, host_residual, shapes, rho=rho, device=device,
+            loop=loop, **kwargs)
         solve.measured_floor = measured_floor
-        return solve, f64_rhs
-
-    if fused:
+    elif fused:
         solve = build_fused_staged_solver(
-            step, apply_a32, apply_a64, host_residual, shapes, device=device, **kwargs)
-        return solve, f64_rhs
-
-    solve, _ = build_staged_solver(step, apply_a32, host_residual, shapes, device=device, **kwargs)
+            step, apply_a32, apply_a64, host_residual, shapes, device=device, loop=loop,
+            **kwargs)
+    else:
+        solve, _ = build_staged_solver(step, apply_a32, host_residual, shapes, device=device,
+                                       loop=loop, **kwargs)
+    solve.graphs = stats
     return solve, f64_rhs

@@ -45,11 +45,13 @@ structure costs no capture (but for a branch's first use), and the time
 objective counts the device's work and the replays, not the host's walk
 of the cycle.  A lowered cycle (`StepCycle`) and its loops' glue are
 captured per structure, as the reference compiles a lowered structure per
-structure.  `cuda_graphs=False` runs the same bodies eagerly, the cycle
-through `CycleVM.make_step` or the lowered step.  Explicit rules keep
-these eager: the CPU (no graphs), a device mesh (its transfers cannot be
-captured) and FAS (its own path, as in the reference).  Times are
-CUDA-event spans on a GPU and `perf_counter` spans on the CPU.
+structure.  A FAS cycle is a lowered step too: it takes no VM, as in the
+reference, but the reference still compiles its stage per structure, and
+so its stage loop is captured per structure here.  `cuda_graphs=False`
+runs the same bodies eagerly, the cycle through `CycleVM.make_step` or the
+lowered step.  Explicit rules keep these eager: the CPU (no graphs) and a
+device mesh (its transfers cannot be captured).  Times are CUDA-event
+spans on a GPU and `perf_counter` spans on the CPU.
 
 `TorchProgramGenerator(problem, mesh=...)` evaluates on a (dp, sp) device
 mesh (parallel/mesh.py), one process per rank, every rank of an `sp` group
@@ -80,6 +82,7 @@ import torch
 
 from evostencils_torch import dtype_is_64bit, dtype_is_complex, numpy_dtype
 from evostencils_torch.backend import graphs
+from evostencils_torch.backend.graphs import StepCycle
 from evostencils_torch.backend.lowering import CycleLowering
 from evostencils_torch.backend.vm import CycleVM, Program
 from evostencils_torch.ir import base, system
@@ -111,51 +114,9 @@ def _host_norm(state) -> float:
     return math.sqrt(sum(float(np.sum(np.abs(x) ** 2)) for x in state))
 
 
-def _omega_values(omega_arg) -> np.ndarray:
-    """The float32 ω of a VM Program or of a lowered step's ω vector."""
-    if isinstance(omega_arg, Program):
-        return np.asarray(omega_arg.omegas[:omega_arg.length], dtype=np.float32)
-    return np.asarray(omega_arg, dtype=np.float32)
-
-
 def _real_scalar(like) -> torch.Tensor:
     """A 0-d zero of the state's real dtype on its device."""
     return torch.zeros((), dtype=like.real.dtype, device=like.device)
-
-
-class StepCycle(graphs.Loop):
-    """One cycle u ← step(u, f, ω) in place on static buffers `u`, `f`
-    shaped like `like`: the eager form of every cycle (a VM program through
-    `CycleVM.make_step`, or a step lowered from the IR), and on CUDA graphs
-    a lowered structure's cycle, captured per structure with the loop that
-    runs it.  The same protocol as graphs.Interpreter: `u`, `f`, `lock`,
-    `load(omega_arg)`, `run_cycle()`.  The step gets `omega_arg`'s
-    structure with a static float32 ω tensor, which `load` fills."""
-
-    bodies = ("cycle",)
-
-    def __init__(self, step, omega_arg, like):
-        super().__init__()
-        self.step = step
-        self.omegas = torch.zeros(len(_omega_values(omega_arg)), dtype=torch.float32,
-                                  device=like[0].device)
-        self.arg = (omega_arg._replace(omegas=self.omegas)
-                    if isinstance(omega_arg, Program) else self.omegas)
-        self.u, self.f = sops.zeros_like_state(like), sops.zeros_like_state(like)
-
-    def __call__(self, u, f):
-        """The step on (u, f) with the loaded ω."""
-        return self.step(u, f, self.arg)
-
-    def load(self, omega_arg) -> None:
-        self.omegas.copy_(torch.from_numpy(_omega_values(omega_arg)))
-
-    def cycle(self) -> None:
-        for d, x in zip(self.u, self(self.u, self.f)):
-            d.copy_(x)
-
-    def run_cycle(self) -> None:
-        self.run("cycle")
 
 
 def _cycle_parts(cycle) -> tuple:
@@ -581,14 +542,14 @@ class TorchProgramGenerator:
                 interpreter = self._interpreters[vm] = graphs.Interpreter(vm.make_state())
             return interpreter
 
-    def _loop(self, key, step, omega_arg, like, make, eager: bool = False):
+    def _loop(self, key, step, omega_arg, like, make):
         """The measurement loop make(cycle) under `key`.  Eagerly (no graph
-        cache, or `eager`): a new loop around StepCycle(step).  On CUDA
+        cache): a new loop around StepCycle(step).  On CUDA
         graphs, a VM program's loop runs on its VM's Interpreter, its glue
         captured once per problem hierarchy (under the interpreter's lock:
         the warm-ups write its state); a lowered step's loop runs on a
         StepCycle of its own, captured with it per structure."""
-        if self.graph_cache is None or eager:
+        if self.graph_cache is None:
             return make(StepCycle(step, omega_arg, like))
         vm = getattr(step, "vm", None)
         if vm is None or not isinstance(omega_arg, Program):
@@ -615,8 +576,6 @@ class TorchProgramGenerator:
         # Stall patience: at the f32 residual floor the best point so far
         # defines the stage's reduction.
         patience = 5
-        # FAS has its own path, as in the reference: it stays eager.
-        eager = self.uses_FAS()
 
         # The finest grid's slab on a mesh: its norms are all-reduced, so
         # every rank reads the same value and takes the same branch.
@@ -633,7 +592,7 @@ class TorchProgramGenerator:
             the reference's device test, evaluated in the tensor's dtype on
             one residual norm read back per cycle.  best_u is a copy."""
             loop = self._loop(key + ("stage",), step, omega_arg, u0,
-                              lambda cycle: StageLoop(cycle, residual_norm), eager)
+                              lambda cycle: StageLoop(cycle, residual_norm))
             with loop.lock:
                 loop.load(u0, rhs, omega_arg)
                 loop.run("start")
@@ -658,7 +617,7 @@ class TorchProgramGenerator:
         def power(e0, zf, omega_arg):
             """(rate, cycles): blocks until the per-cycle rate settles."""
             loop = self._loop(key + ("power",), step, omega_arg, e0,
-                              lambda cycle: PowerLoop(cycle, norm), eager)
+                              lambda cycle: PowerLoop(cycle, norm))
             with loop.lock:
                 loop.load(e0, zf, omega_arg)
                 loop.block()

@@ -15,9 +15,9 @@ CUDA graphs and replayed:
     replays the prologue and then the program's branches in order, each
     reading its ω at the device program counter, so every translated
     structure runs on the same graphs;
-  * a lowered cycle (`Loop` of one body, backend/evaluation.StepCycle),
-    one graph per structure, as the reference compiles a lowered structure
-    per structure;
+  * a lowered cycle (`StepCycle`, a `Loop` of one body), one graph per
+    structure, as the reference compiles a lowered structure per
+    structure (and per solver in backend/device_solve.py);
   * the glue of the measurement loops around a cycle: the stage's start,
     residual norm and best-iterate update; the power block's
     renormalisation and rate; the outer BiCGStab iteration's three pieces
@@ -54,8 +54,12 @@ import weakref
 
 import torch
 
+import numpy as np
+
 from evostencils_torch import CudaGraphError
+from evostencils_torch.backend.vm import Program
 from evostencils_torch.ops import rb_sweep
+from evostencils_torch.ops import stencil_ops as sops
 
 # One capture at a time in the process: the warm-ups, the capture stream
 # and the allocator's pools are shared.
@@ -237,23 +241,68 @@ class Loop:
         else:
             self._graphs[name].replay()
 
-    def capture_bodies(self, pool=None) -> None:
+    def capture_bodies(self, pool=None, warmup: int = 1) -> None:
         """Every body, and every part's, captured into one private pool
-        (`pool` when given).  The loop replays its graphs one after another
-        on one stream and never two at once, and its bodies write only into
-        static buffers, so they share the pool.  `nbytes`: the pool's
-        segments and the static buffers; `captures`: the graphs captured."""
+        (`pool` when given) after `warmup` eager calls each.  The loop
+        replays its graphs one after another on one stream and never two at
+        once, and its bodies write only into static buffers, so they share
+        the pool.  `nbytes`: the pool's segments and the static buffers;
+        `captures`: the graphs captured."""
         loops = (self,) + self.parts()
         tensors = [t for loop in loops for value in vars(loop).values() for t in _tensors(value)]
         own_pool = pool is None
         if own_pool:
             pool = new_pool(tensors[0].device if tensors else "cpu")
-        self._graphs = {name: capture(getattr(self, name), pool=pool)[0] for name in self.bodies}
+        self._graphs = {name: capture(getattr(self, name), warmup=warmup, pool=pool)[0]
+                        for name in self.bodies}
         self.captures = len(self._graphs)
         for part in self.parts():
-            part.capture_bodies(pool)
+            part.capture_bodies(pool, warmup)
             self.captures += part.captures
         self.nbytes = (pool_bytes(pool) if own_pool else 0) + storage_bytes(tensors)
+
+
+def _omega_values(omega_arg) -> np.ndarray:
+    """The float32 ω of a VM Program or of a lowered step's ω vector."""
+    if isinstance(omega_arg, Program):
+        return np.asarray(omega_arg.omegas[:omega_arg.length], dtype=np.float32)
+    return np.asarray(omega_arg, dtype=np.float32)
+
+
+class StepCycle(Loop):
+    """One cycle u ← step(u, f, ω) in place on static buffers `u`, `f`
+    shaped like `like`: the eager form of every cycle (a VM program through
+    `CycleVM.make_step`, or a step lowered from the IR), and on CUDA graphs
+    a lowered structure's cycle, captured per structure with the loop that
+    runs it (backend/evaluation.py) or per solver (backend/device_solve.py).
+    The same protocol as Interpreter: `u`, `f`, `lock`, `load(omega_arg)`,
+    `run_cycle()`.  The step gets `omega_arg`'s structure with a static
+    float32 ω tensor, which `load` fills."""
+
+    bodies = ("cycle",)
+
+    def __init__(self, step, omega_arg, like):
+        super().__init__()
+        self.step = step
+        self.omegas = torch.zeros(len(_omega_values(omega_arg)), dtype=torch.float32,
+                                  device=like[0].device)
+        self.arg = (omega_arg._replace(omegas=self.omegas)
+                    if isinstance(omega_arg, Program) else self.omegas)
+        self.u, self.f = sops.zeros_like_state(like), sops.zeros_like_state(like)
+
+    def __call__(self, u, f):
+        """The step on (u, f) with the loaded ω."""
+        return self.step(u, f, self.arg)
+
+    def load(self, omega_arg) -> None:
+        self.omegas.copy_(torch.from_numpy(_omega_values(omega_arg)))
+
+    def cycle(self) -> None:
+        for d, x in zip(self.u, self(self.u, self.f)):
+            d.copy_(x)
+
+    def run_cycle(self) -> None:
+        self.run("cycle")
 
 
 class Interpreter:

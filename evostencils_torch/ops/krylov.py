@@ -136,7 +136,7 @@ class BicgstabLoop(graphs.Loop):
     """Right-preconditioned BiCGStab on static buffers shaped like `like`.
 
     The preconditioner is one cycle on (0, ·): a cycle object (`u`, `f`,
-    `lock`, `run_cycle()`: backend/evaluation.StepCycle or
+    `lock`, `run_cycle()`: backend/graphs.StepCycle or
     backend/graphs.Interpreter) run in place, or a closure apply_m(state).
     `start` sets up the recurrence from the right-hand side in `rhs`;
     `iteration()` is one outer iteration (two preconditioner and two

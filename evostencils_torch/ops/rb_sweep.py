@@ -128,8 +128,12 @@ def template_radius(radius: int) -> int:
 def rb_sweep_reference(u, f, omega, stencil: constant.Stencil) -> torch.Tensor:
     """Plain torch version: two masked half-sweeps, the residual recomputed
     from the post-red values for black, w = ω·(1/centre) rounded as the
-    kernel rounds it."""
-    w = torch.as_tensor(omega, dtype=u.dtype, device=u.device).reshape(())
+    kernel rounds it.  A float ω becomes a filled tensor, never one made
+    from host data, so the plain cycle, too, can be captured."""
+    if torch.is_tensor(omega):
+        w = omega.to(dtype=u.dtype, device=u.device).reshape(())
+    else:
+        w = torch.full((), float(omega), dtype=u.dtype, device=u.device)
     w = w * float(1.0 / stencil.center_value())
     # red = (row + col) even, on interior indices starting at 0.
     for mask in red_black_masks(tuple(u.shape), torch.bool, u.device):

@@ -7,8 +7,14 @@ launches at ~10 µs of host time each, and the device idles between them,
 so CUDA events around a loop of eager cycles would measure the host.  The
 device figure therefore replays the cycle captured once in a CUDA graph:
 the replays run back to back on the card, and differencing K and 3K
-replays cancels the launch of the first.  The wall figure is what an eager
-caller waits for.  On CPU tensors both are host-clock figures.
+replays cancels the launch of the first.  The wall figure
+(`wall_cycle_time`) is what a caller of the eager cycle waits for.  The
+headline's wall time per solve (scripts/torch_headline_1024.py) is neither:
+its staged solver replays CUDA graphs of its own on the card
+(backend/device_solve.py), so that figure holds the replays, the host's
+reads of one norm per cycle or stage and its float64 verdict, and the
+eager cycle's wall figure is what the solver paid before.  On CPU tensors
+every figure is a host-clock figure.
 """
 
 from __future__ import annotations

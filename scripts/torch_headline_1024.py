@@ -13,12 +13,21 @@ Reported per solver:
   * ρ: the power iteration of TorchProgramGenerator (float32);
   * cycles, stages and the true-f64 relative residual (must be ≤ target);
   * the measured f32 stage floor (--predicted);
-  * wall time of the whole solve, min and median over --repeats;
+  * wall time of the whole solve, min and median over --repeats: on the
+    card the solver's bodies and cycle replay CUDA graphs captured once per
+    solver (backend/device_solve.py), so this is what a user of the solver
+    waits for, the host's control and its float64 verdict included; the
+    captures, their seconds and the bytes the solver's graphs hold;
+  * with --compare-eager, the same solver with cuda_graphs=False beside it:
+    its cycles, stages and rel (which must equal the graph path's) and its
+    wall times;
   * device time per cycle (the cycle captured in a CUDA graph and replayed,
     evostencils_torch/utils/timing.per_cycle_time) and wall time of one
     eager cycle (wall_cycle_time);
   * device time per restart: one float64 residual r = f − A·u plus the
     float32 cast, timed the same way;
+  * host time of a solve's verdict: the exact float64 residual in numpy
+    and two norms (host clock);
   * device compute = cycles × per-cycle + (stages + 1) × per-restart;
   * modeled bytes per cycle (models/roofline.estimate_traffic, an unfused
     count) and their rate as a share of the H100's 3.35 TB/s;
@@ -45,9 +54,10 @@ import time
 if __package__ in (None, ""):
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import numpy as np
 import torch
 
-from evostencils_torch.backend.device_solve import staged_solver_for_expression
+from evostencils_torch.backend.device_solve import _host_l2, staged_solver_for_expression
 from evostencils_torch.backend.evaluation import TorchProgramGenerator
 from evostencils_torch.backend.lowering import CycleLowering
 from evostencils_torch.grammar import gp
@@ -75,6 +85,20 @@ def restart_time(apply_a64, u64, f64, iters=20, repeats=5):
     return per_cycle_time(step, u64, f64, iters=iters, repeats=repeats)
 
 
+def host_verdict_time(generator, operator, f64_rhs, repeats=3):
+    """Host seconds of a solve's verdict: the exact float64 residual of an
+    iterate in numpy and the two norms a solve takes (of f and of the
+    residual), the smallest of `repeats`."""
+    u = tuple(np.zeros_like(x) for x in f64_rhs)
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        r = generator._host_residual(operator, u, f64_rhs)
+        _host_l2(f64_rhs), _host_l2(r)
+        times.append(time.perf_counter() - t0)
+    return min(times)
+
+
 def parse_arguments(argv=None):
     parser = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -94,6 +118,9 @@ def parse_arguments(argv=None):
                         help="predicted-cycle stages from the measured ρ (no per-cycle "
                              "residual norms or stall hunting): cycle counts track "
                              "1/log(ρ)")
+    parser.add_argument("--compare-eager", action="store_true",
+                        help="also solve with cuda_graphs=False (the same bodies run "
+                             "eagerly) and report both")
     parser.add_argument("--json", default=None,
                         help="where to write the rows (default "
                              "chiprun_out/torch_headline_<n>_<device>.json)")
@@ -163,24 +190,38 @@ def run(argv=None) -> list:
     for name, expr, omegas in solvers:
         _, rho, _ = generator.generate_and_evaluate(expr, evaluation_samples=1)
         predicted = args.predicted and rho < 1.0
-        solve, f64_rhs = staged_solver_for_expression(
-            lowering32, expr, operator, problem, generator,
-            omegas=omegas, target=args.target, fused=True,
-            lowering64=lowering64,
-            rho=float(rho) if predicted else None, calibrate_floor=predicted,
-        )
-        floor = getattr(solve, "measured_floor", None)
+
+        def timed_solves(cuda_graphs=None):
+            solve, f64_rhs = staged_solver_for_expression(
+                lowering32, expr, operator, problem, generator,
+                omegas=omegas, target=args.target, fused=True,
+                lowering64=lowering64,
+                rho=float(rho) if predicted else None, calibrate_floor=predicted,
+                cuda_graphs=cuda_graphs,
+            )
+            result = solve(f_32, f64_rhs)
+            times = []
+            for _ in range(args.repeats):
+                t0 = time.perf_counter()
+                result = solve(f_32, f64_rhs)
+                times.append(time.perf_counter() - t0)
+            times.sort()
+            return solve, result, times[0], times[len(times) // 2]
+
         before = collections.Counter(rb_sweep.launches)
-        cycles, rel, stages = solve(f_32, f64_rhs)
-        times = []
-        for _ in range(args.repeats):
-            t0 = time.perf_counter()
-            cycles, rel, stages = solve(f_32, f64_rhs)
-            times.append(time.perf_counter() - t0)
+        solve, (cycles, rel, stages), t_min, t_med = timed_solves()
         launches = collections.Counter(rb_sweep.launches)
         launches.subtract(before)
-        times.sort()
-        t_min, t_med = times[0], times[len(times) // 2]
+        floor = getattr(solve, "measured_floor", None)
+        eager = None
+        if args.compare_eager:
+            eager_solve, result, e_min, e_med = timed_solves(cuda_graphs=False)
+            eager_floor = getattr(eager_solve, "measured_floor", None)
+            eager = {"cycles": int(result[0]), "rel_residual": float(result[1]),
+                     "stages": int(result[2]), "measured_floor": eager_floor,
+                     "wall_min_ms": 1e3 * e_min, "wall_med_ms": 1e3 * e_med,
+                     "bitwise_equal": (tuple(result), eager_floor)
+                     == ((cycles, rel, stages), floor)}
 
         if omegas is not None:
             pstep, _ = lowering32.lower_parameterized(expr)
@@ -191,8 +232,11 @@ def run(argv=None) -> list:
         t_cycle = per_cycle_time(step, u0_32, f_32)
         t_cycle_wall = wall_cycle_time(step, u0_32, f_32)
         if t_restart is None:
-            # The same restart for every solver (A is the problem's
-            # operator, not the cycle's): measured once.
+            # The same restart and verdict for every solver (A is the
+            # problem's operator, not the cycle's): measured once.
+            f64_rhs = tuple(np.asarray(x, np.float64) for x in problem.initial_state(
+                torch.float32)[1])
+            t_verdict = host_verdict_time(generator, operator, f64_rhs)
             u64 = tuple(torch.zeros_like(x, dtype=torch.float64) for x in u0_32)
             f64 = tuple(torch.from_numpy(x).to(device) for x in f64_rhs)
             t_restart = restart_time(lambda u: lowering64.system_apply(operator, u), u64, f64)
@@ -211,9 +255,17 @@ def run(argv=None) -> list:
             "measured_floor": floor,
             "wall_min_ms": 1e3 * t_min,
             "wall_med_ms": 1e3 * t_med,
+            # The solver's CUDA graphs: captured once, at its construction.
+            "cuda_graphs": solve.graphs["captures"] > 0,
+            "captures": solve.graphs["captures"],
+            "capture_s": solve.graphs["capture_s"],
+            "graph_bytes": solve.graphs["bytes"],
+            "eager": eager,
             "t_cycle_us": 1e6 * t_cycle,
             "t_cycle_wall_us": 1e6 * t_cycle_wall,
             "t_restart_us": 1e6 * t_restart,
+            # The host's float64 verdict of one solve (host clock).
+            "host_verdict_ms": 1e3 * t_verdict,
             # Device time on the card; host time on the CPU.
             "clock": "cuda graph replays" if device.type == "cuda" else "host perf_counter",
             "compute_ms": compute_ms,
@@ -225,8 +277,12 @@ def run(argv=None) -> list:
         })
         print(f"[{name}] rho={rho:.4f} cycles={cycles} stages={stages} rel={rel:.2e} "
               f"{clock}={compute_ms:.3f}ms wall_min={1e3 * t_min:.1f}ms "
+              f"captures={solve.graphs['captures']} ({solve.graphs['capture_s']:.2f}s, "
+              f"{solve.graphs['bytes'] / 2**20:.1f}MiB) "
+              + (f"eager wall_min={eager['wall_min_ms']:.1f}ms equal={eager['bitwise_equal']} "
+                 if eager else "") +
               f"t_cycle={1e6 * t_cycle:.1f}us (wall {1e6 * t_cycle_wall:.1f}us) "
-              f"t_restart={1e6 * t_restart:.1f}us "
+              f"t_restart={1e6 * t_restart:.1f}us host_verdict={1e3 * t_verdict:.1f}ms "
               f"floor={floor if floor is None else f'{floor:.1e}'} "
               f"bytes/cycle={bytes_cycle / 1e6:.2f}MB", flush=True)
 
@@ -245,8 +301,9 @@ def run(argv=None) -> list:
               f"{r['t_cycle_wall_us']:.1f} | {r['t_restart_us']:.1f} | "
               f"{r['modeled_GBps']:.0f} | {100 * r['share_of_hbm']:.1f} % |")
     print(f"\n{clock} compute = cycles × per-cycle + (stages + 1) × per-restart (float64 "
-          "residual + float32 cast); the wall times include the host's dispatch of every "
-          "eager op and the host float64 verification.")
+          "residual + float32 cast); the wall times include the host's control (graph "
+          "replays on the card, every op eagerly on the CPU), its reads and the host "
+          "float64 verification.")
     path = args.json or os.path.join(
         ROOT, "chiprun_out", f"torch_headline_{n}_{device.type}.json")
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)

@@ -485,6 +485,55 @@ def test_a_new_structure_of_registered_branches_captures_nothing_on_the_card(cud
 
 
 @pytest.mark.cuda
+def test_predicted_staged_solve_on_graphs_matches_the_eager_bodies(cuda):
+    """A predicted, floor-calibrated V(2,2) at 255² on CUDA graphs (the
+    default) and with cuda_graphs=False: cycles, stages, rel and the
+    measured floor to the bit, and again on the same graphs."""
+    from evostencils_torch.backend.device_solve import staged_solver_for_expression
+
+    problem = poisson_2d(4, 8, dtype=torch.float32)
+    expression = _textbook(problem, 2, 2)
+    generator = TorchProgramGenerator(problem, dtype=torch.float32, device=cuda)
+    _, rho, _ = generator.generate_and_evaluate(expression, evaluation_samples=1)
+    _, f32 = problem.initial_state(torch.float32, device=cuda)
+    outcomes = {}
+    for mode in (None, False):
+        solve, f64_rhs = staged_solver_for_expression(
+            CycleLowering(torch.float32, cuda), expression, _terminals(problem)[1][0].operator,
+            problem, generator, lowering64=CycleLowering(torch.float64, cuda, use_kernels=False),
+            rho=rho, calibrate_floor=True, target=1e-10, cuda_graphs=mode)
+        outcomes[mode] = (solve(f32, f64_rhs), solve.measured_floor, solve.graphs["captures"])
+        if mode is None:
+            assert solve(f32, f64_rhs) == outcomes[mode][0]
+    assert outcomes[None][:2] == outcomes[False][:2] and outcomes[None][0][1] <= 1e-10
+    assert outcomes[None][2] == 5 and outcomes[False][2] == 0
+
+
+@pytest.mark.cuda
+def test_fas_champion_on_graphs_matches_the_eager_bodies(cuda):
+    """The stored FAS champion at levels 5-9 (511²) in float32 on CUDA
+    graphs and with cuda_graphs=False: ρ, iterations and the stage's
+    executed count to the bit, one loop captured, no kernel launch."""
+    problem = fas.fas_2d(5, 9, dtype=torch.float32)
+    with open(os.path.join(os.path.dirname(os.path.dirname(__file__)), "artifacts",
+                           "fas_champion_r5.txt")) as f:
+        tree_string = "".join(line for line in f if not line.startswith("#")).strip()
+    outcomes = {}
+    before = rb_sweep.launches.total()
+    for mode in (True, False):
+        generator = TorchProgramGenerator(problem, dtype=torch.float32, device=cuda,
+                                          cuda_graphs=mode)
+        optimizer = Optimizer.for_problem(problem, program_generator=generator,
+                                          rng=random.Random(0))
+        _, rho, iterations = optimizer.generate_and_evaluate_program_from_grammar_representation(
+            tree_string, 8, evaluation_samples=1)
+        outcomes[mode] = (rho, iterations, generator.last_cycle_solve)
+        assert (generator.graph_cache is not None and len(generator.graph_cache) == 1) == mode
+    assert outcomes[True] == outcomes[False] and outcomes[True][0] < 0.25
+    assert rb_sweep.launches.total() == before
+
+
+@pytest.mark.cuda
 def test_per_cycle_time_refuses_a_cycle_with_a_host_sync(cuda):
     """Last in the file: a failed capture is the one test here that leaves
     the stream's capture aborted."""

@@ -52,11 +52,11 @@ from evostencils_torch.grammar import gp
 from evostencils_torch.ir.transformations import canonical_string
 from evostencils_torch.ops import krylov, rb_sweep
 from evostencils_torch.ops import stencil_ops as sops
-from evostencils_torch.problems import helmholtz
+from evostencils_torch.problems import fas, helmholtz
 from evostencils_torch.problems.poisson import poisson_2d
 from evostencils_torch.utils.champions import apply_stored_omegas, parse_champion_file
-from torch_parity import (
-    JAX, PORT, EagerCapture, Side, eager_capture, jax_state, no_host_reads)
+from torch_parity import (  # noqa: F401 (eager_graphs: a fixture)
+    JAX, PORT, EagerCapture, Side, eager_capture, eager_graphs, jax_state, no_host_reads)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHAMPION = os.path.join(ROOT, "artifacts", "poisson2d_champion_r2_tuned.txt")
@@ -203,12 +203,6 @@ def test_vm_step_with_tensor_omega_equals_the_float_omega_step(dtype):
     got = vm.make_step()(u0, f, program._replace(omegas=torch.from_numpy(program.omegas)))
     for g, e in zip(got, expected):
         assert torch.equal(g, e)
-
-
-@pytest.fixture
-def eager_graphs(monkeypatch):
-    """graphs.capture replaced by the eager stand-in for the test."""
-    monkeypatch.setattr(graphs, "capture", eager_capture)
 
 
 class FakeGraphCache(graphs.GraphCache):
@@ -628,3 +622,11 @@ def test_cuda_graphs_flag_rules():
     with pytest.raises(ValueError, match="mesh"):
         TorchProgramGenerator(problem, device="cuda", mesh=object(), cuda_graphs=True)
     assert not issubclass(CudaGraphError, (RuntimeError, ValueError, NotImplementedError))
+    # FAS is no longer refused: on a card it takes graphs by default, and
+    # asked for them it gets them.
+    fas_problem = fas.fas_2d(3, 5, dtype=torch.float32)
+    assert TorchProgramGenerator(fas_problem, device="cuda").graph_cache is not None
+    assert TorchProgramGenerator(fas_problem, device="cuda", cuda_graphs=True).graph_cache \
+        is not None
+    with pytest.raises(ValueError, match="mesh"):
+        TorchProgramGenerator(fas_problem, device="cuda", mesh=object(), cuda_graphs=True)

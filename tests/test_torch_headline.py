@@ -20,4 +20,7 @@ def test_headline_script_on_the_cpu(tmp_path):
         assert row["clock"] == "host perf_counter" and row["device"] == "cpu"
         assert row["compute_ms"] > 0 and row["modeled_bytes_per_cycle"] > 0
         assert row["measured_floor"] is not None and not row["rb_sweep_launches_by_shape"]
+        # The CPU solves eagerly: no graph, no eager comparison unless asked.
+        assert (row["cuda_graphs"], row["captures"], row["graph_bytes"]) == (False, 0, 0)
+        assert row["eager"] is None
     assert json.loads(path.read_text())["rows"] == json.loads(json.dumps(rows))

@@ -15,6 +15,7 @@ from typing import NamedTuple
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from evostencils_tpu.grammar import gp as jax_gp
@@ -165,6 +166,14 @@ def eager_capture(fn, warmup=1, pool=None):
         fn()
     graphs.counters.add("captures")
     return graphs.Graph(EagerCapture(fn), collections.Counter()), None
+
+
+@pytest.fixture
+def eager_graphs(monkeypatch):
+    """graphs.capture replaced by the eager stand-in for the test."""
+    from evostencils_torch.backend import graphs
+
+    monkeypatch.setattr(graphs, "capture", eager_capture)
 
 
 _TENSOR_READS = ("item", "__bool__", "__float__", "__int__", "__index__", "tolist", "cpu",

@@ -19,6 +19,12 @@ JSON line:
    the kernel and of the plain version at 511² and 1023², as device time
    (`ms`, calls queued back to back) and as the span of one call with the
    host's launch overhead (`call_ms`).
+2b. kernel_batched: the kernel's batched launch (one launch for B members,
+   each with its own ω: the group path's vmapped Pallas calls) at B = 1, 2,
+   4, 8 and 16 and 63², 511² and 1023², with every stencil of the kernel
+   phase: bit for bit equal to B single launches and within 5e-5 of its
+   batched plain version; device times of both at 511² and 1023² beside B ×
+   the single sweep's bound.
 3. levels: the kernel's device time on the 5-point stencil at every level
    of the main path (63² to 1023²), L2 warm as the main path finds it
    (evostencils_torch/measure.py, as for the kernel phase), beside the
@@ -32,6 +38,18 @@ JSON line:
    with the kernel's launch counts by grid size; then the 511² champion
    again on the CPU through the same port, which must agree (ρ within 2 %,
    iterations within ±1).
+4b. group: generate_and_evaluate_group on ω variants of the bench champion
+   (seeded, ×0.85-1.1 of its stored ω) in groups of 2, 5, 16 and 20 at 511²
+   (buckets 2, 8, 16 and 16 + 4), of the 3D champion in a float32 group of
+   4 at 127³ (levels 3-7) and of the champion in a group of 2 at 1023²
+   (levels 6-10), the kernel's launch counts set to 0 before and read after:
+   every group ran batched, batched launches at (2|4|8|16, 511, 511) and (2,
+   1023, 1023); each member against its serial generate_and_evaluate, ρ
+   within 1e-5 relative and iterations equal (±1 only where ρ within that
+   band rounds to another count), the bit-for-bit members counted; one
+   shared time per iteration in each bucket's part of a group.  Printed: the
+   power iteration's CUDA-event ms per member batched and serial, and the
+   captures and bytes per bucket.
 5. evolve: the evolution entry point, scripts/torch_optimize.py, in this
    process on the card: 2D Poisson levels 5-9 (511²) in f32, NSGA-II,
    μ = λ = 8, initial factor 2 and one generation (cut from 4 and 2 to
@@ -276,6 +294,10 @@ and judges the same bound.
 Every phase's seconds are printed in a `seconds` record at the end, and
 every record is also written to chiprun_out/chip_smoke_records.jsonl.
 
+The kernels line lists the single launch in both roles (its launches on the
+main path) and the batched launch in both roles (its launches in the group
+phase, its times at 8 members).
+
 Before the last line it prints the kernels as one JSON object and the card's
 `nvidia-smi` name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -299,7 +321,8 @@ import torch
 
 from evostencils_torch.backend import graphs
 from evostencils_torch.backend.device_solve import staged_solver_for_expression
-from evostencils_torch.backend.evaluation import TorchProgramGenerator
+from evostencils_torch.backend.evaluation import TorchProgramGenerator, group_bucket
+from evostencils_torch.backend.vm import Program
 from evostencils_torch.grammar import gp
 from evostencils_torch.grammar.multigrid import generate_primitive_set
 from evostencils_torch.ir import base, krylov, reference_cycles
@@ -370,7 +393,18 @@ ROLES = {
 
 
 def role(shape) -> str:
-    return "whole_array" if shape[0] * shape[1] <= rb_sweep.WHOLE_ARRAY_CELLS else "row_blocked"
+    """The Pallas call a launch of this key (rows, cols), or (members, rows,
+    cols) for a batched launch, went to on the TPU."""
+    return "whole_array" if shape[-2] * shape[-1] <= rb_sweep.WHOLE_ARRAY_CELLS else "row_blocked"
+
+
+def batched(shape) -> bool:
+    """Whether a launch count's key is a batched launch's."""
+    return len(shape) == 3
+
+
+def shape_label(shape) -> str:
+    return "x".join(str(n) for n in shape)
 
 
 START = time.perf_counter()
@@ -629,8 +663,8 @@ def phase_main_path(failures: list) -> tuple:
             "omegas_applied": bool(omegas_applied_1023),
         },
         "rb_sweep_launches": sum(by_shape.values()),
-        "rb_sweep_launches_by_shape": {f"{r}x{c}": n for (r, c), n in sorted(by_shape.items())},
-        "rb_sweep_replayed_by_shape": {f"{r}x{c}": n for (r, c), n in sorted(replayed.items())},
+        "rb_sweep_launches_by_shape": launches_record(by_shape),
+        "rb_sweep_replayed_by_shape": launches_record(replayed),
         "graphs": graph_record,
     }
     emit(record)
@@ -695,20 +729,24 @@ EVOLVE_EAGER_ARGS = [a for a in EVOLVE_ARGS[:-2] if a != "--tune"] + [
 CHAMPION_RHO = 0.05150734633207321
 
 
-def champion_variants(pset, n: int) -> list:
-    """The champion with its stored ω and n - 1 seeded perturbations of
-    them inside [0.1, 1.9]: one same-structure group."""
-    stored = parse_champion_file(CHAMPION)[1]
+def omega_variants(compile_expression, stored, n: int) -> list:
+    """compile_expression() with the stored ω and n - 1 seeded
+    perturbations of them inside [0.1, 1.9]: one same-structure group."""
     rng = np.random.default_rng(13)
     members = []
     for i in range(n):
-        champion, _ = load_champion(pset)
+        expression = compile_expression()
         omegas = stored if i == 0 else np.clip(
             np.asarray(stored) * rng.uniform(0.85, 1.1, len(stored)), 0.1, 1.9)
-        for cycle, omega in zip(collect_cycles(champion), omegas):
+        for cycle, omega in zip(collect_cycles(expression), omegas):
             cycle.relaxation_factor = float(omega)
-        members.append(champion)
+        members.append(expression)
     return members
+
+
+def champion_variants(pset, n: int) -> list:
+    """The bench champion and n - 1 seeded ω variants of it."""
+    return omega_variants(lambda: load_champion(pset)[0], parse_champion_file(CHAMPION)[1], n)
 
 
 def phase_evolve(failures: list) -> dict:
@@ -779,13 +817,198 @@ def phase_evolve(failures: list) -> dict:
             failures.append(f"evolve: group member rho {rho_g} in {it_g} vs single "
                             f"{rho_s} in {it_s}")
     record["rb_sweep_launches"] = sum(by_shape.values())
-    record["rb_sweep_launches_by_shape"] = {
-        f"{r}x{c}": n for (r, c), n in sorted(by_shape.items())}
+    record["rb_sweep_launches_by_shape"] = launches_record(by_shape)
     if not by_shape:
         failures.append("evolve: the kernel never ran")
     record["phase_s"] = time.perf_counter() - start
     emit(record)
     return by_shape, record
+
+
+# The batched launch: its member counts (one and the reference's buckets),
+# the sizes it is checked at (the main path's coarsest smoothed level and
+# the two roles' timed sizes), and the member count the kernels line quotes.
+BATCHES = (1, 2, 4, 8, 16)
+BATCHED_CHECKED = [(63, 63), (511, 511), (1023, 1023)]
+BATCH_QUOTED = 8
+
+
+def phase_kernel_batched(failures: list) -> dict:
+    """The batched launch against B single launches (bit for bit) and its
+    batched plain version (max|Δ| < TOLERANCE), with every stencil, at each
+    B and size; device times of both at 511² and 1023² beside B × the
+    single sweep's bound.  Returns the entries by (members, rows, cols)."""
+    rng = np.random.default_rng(5)
+    by_key = {}
+    for shape in BATCHED_CHECKED:
+        for members in BATCHES:
+            u, f = (torch.from_numpy(rng.standard_normal((members,) + shape).astype(np.float32))
+                    .cuda() for _ in range(2))
+            omegas = torch.linspace(0.8, 1.3, members, device="cuda")
+            entry = {"members": members, "shape": list(shape), "max_abs_err": {},
+                     "bitwise_equal_to_single_launches": {}}
+            for name, stencil in STENCILS.items():
+                out = rb_sweep.red_black_collective_jacobi_sweep(u, f, omegas, stencil)
+                singles = torch.stack([
+                    rb_sweep.red_black_collective_jacobi_sweep(u[b], f[b], omegas[b], stencil)
+                    for b in range(members)])
+                ref = rb_sweep.rb_sweep_reference(u, f, omegas, stencil)
+                torch.cuda.synchronize()
+                err = float((out - ref).abs().max())
+                same = bool(torch.equal(out, singles))
+                entry["max_abs_err"][name] = err
+                entry["bitwise_equal_to_single_launches"][name] = same
+                if not err < TOLERANCE:
+                    failures.append(f"batched kernel {name} {members}x{shape}: max|Δ| {err}")
+                if not same:
+                    failures.append(f"batched kernel {name} {members}x{shape}: not bit for bit "
+                                    "its single launches")
+            if shape in (timed for _, timed in ROLES.values()):
+                stencil = STENCILS["5-point"]
+                entry["ms"] = median_device_ms(
+                    lambda: rb_sweep.red_black_collective_jacobi_sweep(u, f, omegas, stencil))
+                entry["plain_ms"] = median_device_ms(
+                    lambda: rb_sweep.rb_sweep_reference(u, f, omegas, stencil), calls=10)
+                entry["bound_ms"] = members * bound_ms(shape)
+                entry["share_of_bound"] = entry["bound_ms"] / entry["ms"]
+            by_key[(members,) + shape] = entry
+            emit({"phase": "kernel_batched", **entry})
+    return by_key
+
+
+# The group sizes of the group phase: buckets 2, 8 and 16, and 16 + 4.
+GROUP_SIZES = (2, 5, 16, 20)
+
+
+def _iterations_tie(rho: float, epsilon: float, band: float = 1e-5) -> bool:
+    """Whether ρ moved by `band` relative rounds to another iteration count."""
+    counts = {math.ceil(math.log(epsilon) / math.log(r))
+              for r in (rho * (1 - band), rho, rho * (1 + band)) if 0.0 < r < 1.0}
+    return len(counts) > 1
+
+
+def _event_ms(fn) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def group_power_times(generator, members) -> dict:
+    """CUDA-event span of the members' power iterations, warm: one batched
+    loop of their bucket against one loop per member."""
+    (_, power, _), first = generator._build_solver(members[0])
+    if isinstance(first, Program):
+        args = [generator._vm_program(e)[1] for e in members]
+    else:
+        args = [generator._omega_vector(e) for e in members]
+    _, _, e0, zf = generator._probe_state(members[0])
+    bucket = group_bucket(len(members))
+
+    def batched_loop():
+        generator._batched_rates(power, e0, zf, args, bucket)
+
+    def serial_loops():
+        for w in args:
+            power(e0, zf, w)
+
+    batched_loop()
+    serial_loops()
+    return {"members": len(members), "bucket": bucket,
+            "batched_ms_per_member": _event_ms(batched_loop) / len(members),
+            "serial_ms_per_member": _event_ms(serial_loops) / len(members)}
+
+
+def check_group(failures: list, label: str, generator, members, group) -> dict:
+    """The group's members against their own serial evaluations: ρ within
+    1e-5 relative, iterations equal but where ρ sits within that band of a
+    boundary (then ±1); one shared time per iteration in each bucket's
+    part of the group."""
+    singles = [generator.generate_and_evaluate(e, evaluation_samples=1) for e in members]
+    bitwise = 0
+    for index, ((_, rho, it), (_, rho_s, it_s)) in enumerate(zip(group, singles)):
+        bitwise += (rho, it) == (rho_s, it_s)
+        if math.isfinite(rho_s) and rho_s < 1e50:
+            if not abs(rho - rho_s) <= 1e-5 * rho_s:
+                failures.append(f"{label} member {index}: rho {rho} vs serial {rho_s}")
+        elif rho != rho_s:
+            failures.append(f"{label} member {index}: rho {rho} vs serial {rho_s}")
+        if it != it_s and not (abs(it - it_s) <= 1 and _iterations_tie(rho_s, generator.epsilon)):
+            failures.append(f"{label} member {index}: {it} iterations vs serial {it_s}")
+    largest = rb_sweep.MAX_MEMBERS
+    for part in range(0, len(group), largest):
+        times = {t / it for t, _, it in group[part:part + largest] if t < 1e50}
+        if len(times) > 1 and max(times) - min(times) > 1e-9 * max(times):
+            failures.append(f"{label}: times per iteration {sorted(times)} are not one shared time")
+    check_results(failures, label, group)
+    return {"group": [list(r) for r in group], "serial": [list(r) for r in singles],
+            "bitwise_equal_members": bitwise}
+
+
+def phase_group(failures: list) -> dict:
+    """The batched group path: ω variants of the bench champion at 511²
+    (levels 5-9) in groups of 2, 5, 16 and 20, a 3D float32 group of 4
+    variants of the 3D champion at 127³ (levels 3-7) and a group of 2 at
+    1023² (levels 6-10, the row-blocked role), each through
+    generate_and_evaluate_group on the card with the kernel's launch counts
+    set to 0 just before and read just after; then each member against its
+    serial evaluation, the power iterations timed batched and serial, and
+    the graphs captured per bucket.  Returns the launches by key."""
+    start = time.perf_counter()
+    problem = poisson_2d(min_level=5, max_level=9, dtype=torch.float32)
+    generator = TorchProgramGenerator(problem, dtype=torch.float32, iteration_limit=500,
+                                      device="cuda")
+    groups_2d = {n: champion_variants(bench_pset(problem), n) for n in GROUP_SIZES}
+    problem_3d = poisson.poisson_3d(3, 7, dtype=torch.float32)
+    generator_3d = TorchProgramGenerator(problem_3d, dtype=torch.float32, device="cuda")
+    group_3d = omega_variants(
+        lambda: artifact_expression(problem_3d, POISSON3D_CHAMPION, False, failures),
+        parse_champion_file(POISSON3D_CHAMPION)[1], 4)
+    problem_1023 = poisson_2d(min_level=6, max_level=10, dtype=torch.float32)
+    generator_1023 = TorchProgramGenerator(problem_1023, dtype=torch.float32,
+                                           iteration_limit=500, device="cuda")
+    group_1023 = champion_variants(bench_pset(problem_1023), 2)
+
+    rb_sweep.clear_counts()
+    graphs.counters.reset()
+    results, walls = {}, {}
+    runs = [(f"511_n{n}", generator, members) for n, members in groups_2d.items()] + [
+        ("127^3_n4", generator_3d, group_3d), ("1023_n2", generator_1023, group_1023)]
+    for label, gen, members in runs:
+        t0 = time.perf_counter()
+        results[label] = gen.generate_and_evaluate_group(members, evaluation_samples=1)
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+    by_shape = dict(rb_sweep.launches)
+    counters = graphs.counters.as_dict()
+
+    record = {"phase": "group", "wall_s": walls, "graphs": counters,
+              "rb_sweep_launches_by_shape": launches_record(by_shape)}
+    for label, gen, members in runs:
+        record[label] = check_group(failures, f"group {label}", gen, members, results[label])
+    record["power_ms"] = {label: group_power_times(gen, members) for label, gen, members in runs
+                          if label in ("511_n5", "511_n16", "127^3_n4", "1023_n2")}
+    record["buckets"] = {name: gen.graph_stats()["buckets"] for name, gen in (
+        ("511", generator), ("127^3", generator_3d), ("1023", generator_1023))}
+    record["counts"] = {name: {"groups": gen.groups, "groups_batched": gen.groups_batched,
+                               "batched_members": gen.batched_members}
+                        for name, gen in (("511", generator), ("127^3", generator_3d),
+                                          ("1023", generator_1023))}
+    record["phase_s"] = time.perf_counter() - start
+    emit(record)
+
+    for name, gen in (("511", generator), ("127^3", generator_3d), ("1023", generator_1023)):
+        if not gen.groups_batched:
+            failures.append(f"group {name}: no group ran batched")
+    expected = {(2, 511, 511), (8, 511, 511), (16, 511, 511), (4, 511, 511), (2, 1023, 1023)}
+    for key in sorted(expected - {k for k, n in by_shape.items() if n}):
+        failures.append(f"group: no batched launch {shape_label(key)}")
+    if counters["capture_failures"]:
+        failures.append(f"group: graphs {counters}")
+    return by_shape
 
 
 def profile_run(evaluate, table_name: str, host_ops: bool = True) -> dict:
@@ -1056,7 +1279,7 @@ def phase_krylov_cgs(failures: list) -> dict:
         "cg": {"time_to_target_ms": cg[0], "rho": cg[1], "iterations": cg[2], "eval_s": cg_s},
         "dense": {"time_to_target_ms": dense[0], "rho": dense[1], "iterations": dense[2]},
         "vm_stats": generator.vm_stats(),
-        "rb_sweep_launches_by_shape": {f"{r}x{c}": n for (r, c), n in sorted(by_shape.items())},
+        "rb_sweep_launches_by_shape": launches_record(by_shape),
     })
     check_results(failures, "krylov_cgs", [cg, dense])
     if not (math.isfinite(cg[1]) and abs(cg[1] - dense[1]) < 0.05):
@@ -1636,7 +1859,7 @@ def phase_headline(failures: list) -> dict:
         "tpu_r58_cross_check": TPU_R58,
         "fused_v22": fused,
         "predicted_v22_255": repeats,
-        "rb_sweep_launches_by_shape": {f"{r}x{c}": n for (r, c), n in sorted(by_shape.items())},
+        "rb_sweep_launches_by_shape": launches_record(by_shape),
         "phase_s": time.perf_counter() - start,
     })
     for row in rows:
@@ -1783,7 +2006,7 @@ def add_launches(total: dict, launched: dict) -> None:
 
 
 def launches_record(by_shape: dict) -> dict:
-    return {f"{r}x{c}": n for (r, c), n in sorted(by_shape.items())}
+    return {shape_label(shape): n for shape, n in sorted(by_shape.items())}
 
 
 def phase_problem_file(failures: list) -> dict:
@@ -2690,9 +2913,11 @@ def main() -> int:
 
     device = timed("device", phase_device)
     kernel = timed("kernel", phase_kernel, failures)
+    kernel_batched = timed("kernel_batched", phase_kernel_batched, failures)
     timed("levels", phase_levels)
     launches_by_role, generator, champion, champion_rho, graph_mode = timed(
         "main_path", phase_main_path, failures)
+    group_launches = timed("group", phase_group, failures)
     evolve_launches, evolve = timed("evolve", phase_evolve, failures)
     timed("profile", phase_profile, generator, champion)
     helmholtz_k80 = timed("helmholtz", phase_helmholtz, failures)
@@ -2732,14 +2957,18 @@ def main() -> int:
             "launches": launches_by_role[name],
             "replayed_launches": replayed_by_role[name],
             "evolve_launches": sum(n for shape, n in evolve_launches.items()
-                                   if role(shape) == name),
+                                   if role(shape) == name and not batched(shape)),
             "krylov_cgs_launches": sum(n for shape, n in cgs_launches.items()
                                        if role(shape) == name),
+            # The group phase's single launches: the members' timing solves.
+            "group_launches": sum(n for shape, n in group_launches.items()
+                                  if role(shape) == name and not batched(shape)),
             # The families the gate refuses: every count is checked to be 0.
             **{f"{phase}_launches": count for phase, count in family_launches.items()},
             "headline_launches": sum(n for shape, n in headline_launches.items()
                                      if role(shape) == name),
-            **{f"{phase}_launches": sum(n for shape, n in by_shape.items() if role(shape) == name)
+            **{f"{phase}_launches": sum(n for shape, n in by_shape.items()
+                                        if role(shape) == name and not batched(shape))
                for phase, by_shape in (("problem_file", problem_file_launches),
                                        ("scripts", scripts_launches),
                                        ("dispatch", dispatch_launches))},
@@ -2751,6 +2980,33 @@ def main() -> int:
             "bound_ms": kernel[timed]["bound_ms"], "bound_by": "bytes",
             "share_of_bound": kernel[timed]["share_of_bound"],
             # No single PyTorch call computes a red-black collective-Jacobi step.
+            "library_ms": None,
+        })
+    for name, (replaces, timed) in ROLES.items():
+        quoted = kernel_batched[(BATCH_QUOTED,) + timed]
+        kernels.append({
+            "name": f"rb_sweep_f32_batched ({name}, the group path's vmapped call)",
+            "route": "cuda", "source": KERNEL_SOURCE, "replaces": replaces,
+            "shape": [BATCH_QUOTED] + list(timed),
+            # Batched launches in the group phase, eager and replayed, and
+            # by member count.
+            "launches": sum(n for shape, n in group_launches.items()
+                            if batched(shape) and role(shape) == name),
+            "launches_by_members": {
+                str(members): sum(n for shape, n in group_launches.items()
+                                  if batched(shape) and role(shape) == name
+                                  and shape[0] == members)
+                for members in BATCHES},
+            "evolve_launches": sum(n for shape, n in evolve_launches.items()
+                                   if role(shape) == name and batched(shape)),
+            "max_abs_err": max(e for key, entry in kernel_batched.items() if role(key) == name
+                               for e in entry["max_abs_err"].values()),
+            "ms": quoted["ms"], "plain_ms": quoted["plain_ms"],
+            "bound_ms": quoted["bound_ms"], "bound_by": "bytes",
+            "share_of_bound": quoted["share_of_bound"],
+            "ms_by_members": {str(key[0]): entry["ms"] for key, entry in kernel_batched.items()
+                              if key[1:] == timed},
+            # No single PyTorch call computes a batch of red-black steps.
             "library_ms": None,
         })
     emit({"phase": "end"})

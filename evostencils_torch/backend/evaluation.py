@@ -23,9 +23,11 @@ failures.
     evaluates the ladder k, 2k, 4k and averages.
 
 `generate_and_evaluate_group` scores same-structure individuals (the
-optimizer's ω-mutation offspring) as the reference's group path does: ρ
-per member, one time per iteration measured on the first survivor and
-shared.
+optimizer's ω-mutation offspring) as the reference's group path does: the
+members' float32 power iterations as one batched loop over a member axis
+(`BatchedPowerLoop`, the counterpart of the reference's vmapped
+`power_raw`), padded to a bucket of 2, 4, 8 or 16 members; one time per
+iteration measured on the first survivor and shared.
 
 The generator runs on the card unless the caller asks for the CPU
 (`device="cpu"`).  The reference's device loops (`lax.while_loop`) are
@@ -84,7 +86,7 @@ from evostencils_torch import dtype_is_64bit, dtype_is_complex, numpy_dtype
 from evostencils_torch.backend import graphs
 from evostencils_torch.backend.graphs import StepCycle
 from evostencils_torch.backend.lowering import CycleLowering
-from evostencils_torch.backend.vm import CycleVM, Program
+from evostencils_torch.backend.vm import CycleVM, Program, batched_program
 from evostencils_torch.ir import base, system
 from evostencils_torch.ir.transformations import canonical_string, collect_cycles
 from evostencils_torch.ops import krylov
@@ -96,8 +98,9 @@ from evostencils_torch.stencils import periodic
 # cycle's error norm — clamp to a finite, best-ordered value.
 ZERO_RATE_CLAMP = 1e-16
 
-# The reference's largest vmapped group; larger groups are split.
-GROUP_SIZE_LIMIT = 16
+# The reference's group buckets: a group of n runs padded to the smallest
+# bucket that holds it, and a larger group is split at the largest.
+GROUP_BUCKETS = (2, 4, 8, 16)
 
 # Device faults that poison one individual (a run of them aborts); checked
 # before the RuntimeError family they belong to.
@@ -114,9 +117,20 @@ def _host_norm(state) -> float:
     return math.sqrt(sum(float(np.sum(np.abs(x) ** 2)) for x in state))
 
 
-def _real_scalar(like) -> torch.Tensor:
-    """A 0-d zero of the state's real dtype on its device."""
-    return torch.zeros((), dtype=like.real.dtype, device=like.device)
+def _real_scalar(like, shape=()) -> torch.Tensor:
+    """A 0-d zero (or zeros of `shape`) of the state's real dtype on its
+    device."""
+    return torch.zeros(shape, dtype=like.real.dtype, device=like.device)
+
+
+def group_bucket(n: int) -> int:
+    """The members a group of n runs as: the next power of two, at least
+    2 and at most the largest bucket (evostencils_tpu/backend/
+    evaluation.py:755-768)."""
+    bucket = GROUP_BUCKETS[0]
+    while bucket < n:
+        bucket *= 2
+    return min(bucket, GROUP_BUCKETS[-1])
 
 
 def _cycle_parts(cycle) -> tuple:
@@ -225,6 +239,31 @@ class PowerLoop(graphs.Loop):
         self.log_acc.zero_()
 
 
+class BatchedPowerLoop(PowerLoop):
+    """PowerLoop over a member axis (the counterpart of the reference's
+    vmapped `power_raw`): the cycle's state is shaped (B, *grid), `norm`
+    gives one norm per member, each member is divided by its own norm and
+    accumulates its own log, and `rate` holds B block rates.  A member's
+    arithmetic is the single loop's on that member."""
+
+    def __init__(self, cycle, norm):
+        graphs.Loop.__init__(self)
+        self.cycle, self.norm = cycle, norm
+        self.lock = cycle.lock
+        like = cycle.u[0]
+        self.log_acc, self.rate = _real_scalar(like, like.shape[:1]), _real_scalar(
+            like, like.shape[:1])
+
+    def renormalise(self) -> None:
+        e = self.cycle.u
+        n = self.norm(e)
+        tiny = torch.finfo(n.dtype).tiny
+        safe = sops.per_member(torch.where(n > 0, n, 1.0), e[0])
+        for x in e:
+            x.copy_(x / safe)
+        self.log_acc.add_(torch.log(torch.where(n > 0, n, tiny)))
+
+
 class TorchProgramGenerator:
     """Evaluate evolved cycles with torch on `device` (the card by default).
 
@@ -309,9 +348,16 @@ class TorchProgramGenerator:
         # The opcode sequences of the VM programs evaluated.
         self._vm_structures = set()
         # Groups scored by generate_and_evaluate_group, and their members
-        # (members of a group that fell back one by one are not counted).
+        # (members of a group that fell back one by one are not counted);
+        # the part of them whose power iterations ran as one batched loop.
         self.groups = 0
         self.group_members = 0
+        self.groups_batched = 0
+        self.batched_members = 0
+        # Wall seconds spent in generate_and_evaluate_group.
+        self.group_s = 0.0
+        # The batched group path's interpreters, one per (VM, bucket).
+        self._batched_interpreters = {}
         # What the last outer-Krylov evaluation did: the probe's verdict
         # ("skipped", "killed", "survived": the staged solve went on from its
         # iterate, or "unused": it reduced nothing), its iterations and the
@@ -344,7 +390,18 @@ class TorchProgramGenerator:
         lowered path."""
         cache = self.graph_cache
         entries = [] if cache is None else list(cache._entries.items())
-        interpreters = list(self._interpreters.items())
+        interpreters = list(self._interpreters.items()) + [
+            (vm, i) for (vm, _), i in self._batched_interpreters.items()]
+        buckets = {}
+        for (_, members), interpreter in self._batched_interpreters.items():
+            bucket = buckets.setdefault(members, {"captures": 0, "bytes": 0})
+            bucket["captures"] += interpreter.captures
+            bucket["bytes"] += interpreter.nbytes
+        for key, loop in entries:
+            if key[-2] == "power" and isinstance(key[-1], int):
+                bucket = buckets.setdefault(key[-1], {"captures": 0, "bytes": 0})
+                bucket["captures"] += loop.captures
+                bucket["bytes"] += loop.nbytes
         return {
             "vm_captures": (sum(i.captures for _, i in interpreters)
                             + (cache.captures["__vm__"] if cache is not None else 0)),
@@ -354,6 +411,10 @@ class TorchProgramGenerator:
             "structures": len(self._vm_structures),
             "lowered_captures": 0 if cache is None else sum(
                 n for kind, n in cache.captures.items() if kind != "__vm__"),
+            # The batched group path by bucket: its interpreters' graphs and
+            # its power loops' (glue, or a lowered structure's cycle and
+            # glue), and the bytes they hold.
+            "buckets": {members: buckets[members] for members in sorted(buckets)},
         }
 
     @property
@@ -434,6 +495,7 @@ class TorchProgramGenerator:
         self._solver_cache.clear()
         self._vms.clear()
         self._interpreters.clear()
+        self._batched_interpreters.clear()
         if self.graph_cache is not None:
             self.graph_cache.clear()
 
@@ -535,26 +597,35 @@ class TorchProgramGenerator:
             [float(c.relaxation_factor) for c in collect_cycles(expression)], dtype=np.float32
         )
 
-    def _interpreter(self, vm) -> graphs.Interpreter:
+    def _interpreter(self, vm, members: Optional[int] = None) -> graphs.Interpreter:
+        """The VM's interpreter, or with `members` its batched one for that
+        bucket."""
         with self._build_lock:
+            if members is not None:
+                interpreter = self._batched_interpreters.get((vm, members))
+                if interpreter is None:
+                    interpreter = self._batched_interpreters[(vm, members)] = (
+                        graphs.Interpreter(vm.make_state(members)))
+                return interpreter
             interpreter = self._interpreters.get(vm)
             if interpreter is None:
                 interpreter = self._interpreters[vm] = graphs.Interpreter(vm.make_state())
             return interpreter
 
-    def _loop(self, key, step, omega_arg, like, make):
+    def _loop(self, key, step, omega_arg, like, make, members: Optional[int] = None):
         """The measurement loop make(cycle) under `key`.  Eagerly (no graph
         cache): a new loop around StepCycle(step).  On CUDA
         graphs, a VM program's loop runs on its VM's Interpreter, its glue
         captured once per problem hierarchy (under the interpreter's lock:
         the warm-ups write its state); a lowered step's loop runs on a
-        StepCycle of its own, captured with it per structure."""
+        StepCycle of its own, captured with it per structure.  `members`:
+        the batched loop of a group bucket, on that bucket's interpreter."""
         if self.graph_cache is None:
             return make(StepCycle(step, omega_arg, like))
         vm = getattr(step, "vm", None)
         if vm is None or not isinstance(omega_arg, Program):
             return self.graph_cache.get(key, lambda: make(StepCycle(step, omega_arg, like)))
-        interpreter = self._interpreter(vm)
+        interpreter = self._interpreter(vm, members)
         with interpreter.lock:
             return self.graph_cache.get(key, lambda: make(interpreter))
 
@@ -586,6 +657,15 @@ class TorchProgramGenerator:
 
         def norm(e):
             return sops.l2_norm(e, slab)
+
+        def member_norms(e):
+            return sops.l2_norm(e, slab, members=True)
+
+        def going(k, prev_rate, rate):
+            """The power iteration's `cond`, for one rate or one per member."""
+            with np.errstate(invalid="ignore", over="ignore"):
+                return ((k < 8) & ((k < 3) | (np.abs(rate - prev_rate) > np_dt(0.02) * np.abs(rate)))
+                        & (rate < 2.0) & np.isfinite(rate))
 
         def stage(u0, rhs, omega_arg):
             """(best_res, res0, best_it, best_u, executed); the exit test is
@@ -623,16 +703,39 @@ class TorchProgramGenerator:
                 loop.block()
                 rate = np_dt(loop.rate.item())
                 prev_rate, k = np_dt(0.0), 1
-                while (
-                    k < 8
-                    and (k < 3 or abs(rate - prev_rate) > np_dt(0.02) * abs(rate))
-                    and rate < 2.0
-                    and np.isfinite(rate)
-                ):
+                while going(k, prev_rate, rate):
                     loop.block()
                     prev_rate, rate, k = rate, np_dt(loop.rate.item()), k + 1
             return rate, k * PowerLoop.BLOCK_LEN
 
+        def batched_power(e0, zf, omega_arg):
+            """(rates, cycles), one of each per member: the power iteration
+            of B members (e0, zf shaped (B, *grid), `omega_arg` one row of ω
+            per member) as one loop, one read of the B rates a block.  Each
+            member is held to `cond` on its own; a member whose `cond` ends
+            keeps the rate and the block count it had there, as the
+            reference's vmap of `while_loop` freezes a finished member's
+            carry, and the loop runs until no member goes on."""
+            members = e0[0].shape[0]
+            loop = self._loop(key + ("power", members), step, omega_arg, e0,
+                              lambda cycle: BatchedPowerLoop(cycle, member_norms), members)
+            with loop.lock:
+                loop.load(e0, zf, omega_arg)
+                loop.block()
+                rate = loop.rate.cpu().numpy().astype(np_dt)
+                prev_rate, k = np.zeros_like(rate), np.ones(members, dtype=np.int64)
+                active = going(k, prev_rate, rate)
+                while active.any():
+                    loop.block()
+                    new_rate = loop.rate.cpu().numpy().astype(np_dt)
+                    prev_rate = np.where(active, rate, prev_rate)
+                    rate = np.where(active, new_rate, rate)
+                    k += active
+                    active &= going(k, prev_rate, rate)
+            return rate, k * PowerLoop.BLOCK_LEN
+
+        # The group path's batched form of the same power iteration.
+        power.batched = batched_power
         return stage, power
 
     def _probe_error_seed(self):
@@ -1095,14 +1198,34 @@ class TorchProgramGenerator:
         """Evaluation of same-structure individuals (counterpart of the
         reference's group path, evostencils_tpu/backend/evaluation.py:703).
 
-        All expressions share the ω-parameterized structural key.  Each
-        member's ρ is its own float32 power iteration, as
-        `generate_and_evaluate` computes it; the time per iteration is
-        measured once, on the first member that survives, and every later
-        survivor shares it.  The reference vmaps the power iteration over
-        the group's ω in one dispatch; here it runs once per member.
-        Returns a list of (time_to_convergence_ms, ρ, iterations) triples.
+        All expressions share the ω-parameterized structural key.  Their
+        float32 power iterations run as one batched loop over a member axis
+        (`BatchedPowerLoop`): a group of n is padded to its bucket
+        (`group_bucket`) with the first member's ω, whose rates are dropped,
+        and a group larger than the largest bucket is split there.  Every
+        cycle of the batch runs each member's arithmetic (so a member's ρ
+        is the one `generate_and_evaluate` gives it, bit for bit on the
+        CPU), every red-black sweep that the kernel's gate takes is one
+        batched launch, and on a card the batch runs on CUDA graphs: a VM
+        program on its VM's interpreter for that bucket, a lowered
+        structure on a StepCycle per (structure, bucket).  The time per
+        iteration is measured once, on the first member that survives, by
+        the single-member stage solve, and every later survivor shares it.
+        Members go one by one in the reference's own cases (an outer
+        solver, FAS, a 64-bit dtype, a member whose program differs, an
+        error the reference catches); on a device mesh the power iterations
+        run one member at a time.  Returns a list of
+        (time_to_convergence_ms, ρ, iterations) triples.
         """
+        t0 = time.perf_counter()
+        try:
+            return self._evaluate_group(expressions, infinity, evaluation_samples,
+                                        global_variable_values)
+        finally:
+            self.group_s += time.perf_counter() - t0
+
+    def _evaluate_group(self, expressions, infinity, evaluation_samples,
+                        global_variable_values):
         if global_variable_values:
             self._apply_parameter_values(global_variable_values)
 
@@ -1133,20 +1256,31 @@ class TorchProgramGenerator:
                     omega_args.append(program)
             else:
                 omega_args = [self._omega_vector(e) for e in expressions]
-            if len(expressions) > GROUP_SIZE_LIMIT:
+            bucket = group_bucket(len(expressions))
+            if len(expressions) > bucket:
                 # As the reference: the halves drop global_variable_values.
-                return self.generate_and_evaluate_group(
-                    expressions[:GROUP_SIZE_LIMIT], infinity, evaluation_samples
-                ) + self.generate_and_evaluate_group(
-                    expressions[GROUP_SIZE_LIMIT:], infinity, evaluation_samples
+                return self._evaluate_group(
+                    expressions[:bucket], infinity, evaluation_samples, None
+                ) + self._evaluate_group(
+                    expressions[bucket:], infinity, evaluation_samples, None
                 )
             u0, f, e0, zf = self._probe_state(expressions[0])
-            rates = [float(power_solve(e0, zf, w)[0]) for w in omega_args]
+            if self.layout is not None:
+                rates = [float(power_solve(e0, zf, w)[0]) for w in omega_args]
+            else:
+                rates = self._batched_rates(power_solve, e0, zf, omega_args, bucket)
+                self.groups_batched += 1
+                self.batched_members += len(expressions)
             self._consecutive_device_failures = 0
             self.groups += 1
             self.group_members += len(expressions)
         except _RANK_ERRORS:
             raise
+        except _DEVICE_ERRORS:
+            # A device fault poisons the members, as it poisons a single
+            # evaluation; it never sends them one by one.
+            self._device_failed()
+            return [(infinity, infinity, infinity) for _ in expressions]
         except (RuntimeError, ValueError, TypeError, NotImplementedError, FloatingPointError):
             return one_by_one()
 
@@ -1167,6 +1301,22 @@ class TorchProgramGenerator:
                     continue
             results.append((iterations * t_iter_ms, rho, iterations))
         return results
+
+    @staticmethod
+    def _batched_rates(power_solve, e0, zf, omega_args, bucket: int) -> list:
+        """The members' power-iteration rates from one batched loop of
+        `bucket` members: the probe's error and zero right-hand side for
+        every member, the rows past the group's carrying its first member's
+        ω; those rows' rates are dropped."""
+        padded = list(omega_args) + [omega_args[0]] * (bucket - len(omega_args))
+        if isinstance(padded[0], Program):
+            omega_arg = batched_program(padded)
+        else:
+            omega_arg = np.stack(padded)
+        e0 = tuple(x.expand((bucket,) + tuple(x.shape)).contiguous() for x in e0)
+        zf = tuple(x.new_zeros((bucket,) + tuple(x.shape)) for x in zf)
+        rates, _ = power_solve.batched(e0, zf, omega_arg)
+        return [float(rate) for rate in rates[:len(omega_args)]]
 
     def evaluate_objectives(self, expression, evaluation_samples=3, infinity=1e100):
         """(ρ, time_per_iteration_ms): the NSGA-II objective pair."""

@@ -263,9 +263,10 @@ class Loop:
 
 
 def _omega_values(omega_arg) -> np.ndarray:
-    """The float32 ω of a VM Program or of a lowered step's ω vector."""
+    """The float32 ω of a VM Program or of a lowered step's ω vector (one
+    row per member for a batch)."""
     if isinstance(omega_arg, Program):
-        return np.asarray(omega_arg.omegas[:omega_arg.length], dtype=np.float32)
+        return np.asarray(omega_arg.omegas[..., :omega_arg.length], dtype=np.float32)
     return np.asarray(omega_arg, dtype=np.float32)
 
 
@@ -277,14 +278,18 @@ class StepCycle(Loop):
     runs it (backend/evaluation.py) or per solver (backend/device_solve.py).
     The same protocol as Interpreter: `u`, `f`, `lock`, `load(omega_arg)`,
     `run_cycle()`.  The step gets `omega_arg`'s structure with a static
-    float32 ω tensor, which `load` fills."""
+    float32 ω tensor, which `load` fills.  A batch of members takes state
+    shaped (B, *grid) and ω with one row per member (backend/vm.py
+    `batched_program`, or a (B, slots) array for a lowered step): on graphs
+    one per (structure, bucket), as the reference compiles its vmapped
+    power iteration per key and bucket."""
 
     bodies = ("cycle",)
 
     def __init__(self, step, omega_arg, like):
         super().__init__()
         self.step = step
-        self.omegas = torch.zeros(len(_omega_values(omega_arg)), dtype=torch.float32,
+        self.omegas = torch.zeros(_omega_values(omega_arg).shape, dtype=torch.float32,
                                   device=like[0].device)
         self.arg = (omega_arg._replace(omegas=self.omegas)
                     if isinstance(omega_arg, Program) else self.omegas)
@@ -325,7 +330,11 @@ class Interpreter:
     recorded launches).  A body that cannot be captured raises
     CudaGraphError; nothing runs eagerly in its place.  `lock` serialises
     the loops and threads that share the state; `captures` counts this
-    interpreter's graphs, `nbytes` its pool and state."""
+    interpreter's graphs, `nbytes` its pool and state.  Over a LevelState
+    with members it runs a batch of same-structure programs (one per
+    member, `load` takes backend/vm.batched_program): the group path keeps
+    one such interpreter per (VM, bucket), with its own pool and lock, its
+    branches captured at their first use in that bucket."""
 
     def __init__(self, state):
         self.state = state

@@ -55,6 +55,16 @@ pointwise, and its 200 Picard sweeps run on the coarsest level whether the
 replication rule holds that level whole or leaves it split.  Complex
 coefficient planes (Helmholtz with Robin boundaries) are cut to the slab
 as real ones are.
+
+A step also runs a batch of same-structure cycles (the group path's
+members, backend/evaluation.py): fields of shape (B, *grid) and, for
+`lower_parameterized`, ω as a (B, slots) tensor, one row per member.  The
+ops index the trailing grid axes, ω and the coefficient planes broadcast
+over the members, every red-black sweep of a member level that the gate
+takes is one batched launch of the kernel, and the Krylov coarse solves
+take one inner product per member, so each member gets the bits its own
+step would give it (on the CPU; on the card up to the order of the
+per-member reductions).  Members take no mesh.
 """
 
 from __future__ import annotations
@@ -93,6 +103,11 @@ def _constant_stencil(entry):
     if isinstance(stencil, periodic.PeriodicStencil):
         stencil = stencil.as_constant()
     return stencil
+
+
+def _has_members(x: torch.Tensor, grid) -> bool:
+    """Whether a field on `grid` carries a leading member axis."""
+    return x.dim() > len(grid.interior_shape)
 
 
 def _center_plane(offsets, planes):
@@ -455,7 +470,8 @@ class CycleLowering:
         nonlinear = self._nonlinear_entries(solver.operator)
         if nonlinear is not None:
             return self._nonlinear_coarse_solve(solver.operator, nonlinear, r_state, rhs_expr, ev)
-        slab = self._slab(solver.operator.grid[0])
+        grid = solver.operator.grid[0]
+        slab = self._slab(grid)
         if expr is None:
             if slab is None:
                 return self._dense_spec(solver.operator).apply(r_state)
@@ -466,7 +482,8 @@ class CycleLowering:
         if isinstance(expr, KrylovSubspaceMethod):
             apply_a = partial(self.system_apply, expr.operator)
             return krylov.SOLVERS[expr.name](
-                apply_a, tuple(r_state), expr.number_of_iterations, slab=slab)
+                apply_a, tuple(r_state), expr.number_of_iterations, slab=slab,
+                members=_has_members(r_state[0], grid))
         if hasattr(expr, "apply_as_solver"):
             # Nested evolved cycle from a previous optimization run
             # (multi-run level splitting): run it once on (0, r).
@@ -531,6 +548,10 @@ class CycleLowering:
         omega_values = [float(c.relaxation_factor) for c in cycles]
 
         def step(u: Tuple, f: Tuple, omegas) -> Tuple:
+            if torch.is_tensor(omegas) and omegas.dim() == 2:
+                # One row of ω per member, each viewed to scale its member.
+                return self._walk(expression, u, f, lambda node: sops.per_member(
+                    omegas[:, slots[id(node)]], u[0]))
             if torch.is_tensor(omegas):
                 return self._walk(expression, u, f, lambda node: omegas[slots[id(node)]])
             return self._walk(expression, u, f, lambda node: float(omegas[slots[id(node)]]))
@@ -549,16 +570,20 @@ class CycleLowering:
 
         return ev(expression)
 
-    def _zeros_for(self, node) -> Tuple:
+    def _zeros_for(self, node, u) -> Tuple:
+        """Zero fields on the node's grids, with the members of the cycle's
+        iterate `u` if it has any."""
         grids = node.grid if isinstance(node.grid, list) else [node.grid]
+        members = sops.member_shape(u[0], len(grids[0].interior_shape))
         return tuple(
-            torch.zeros(self.local_shape(g.interior_shape), dtype=self.dtype, device=self.device)
+            torch.zeros(members + self.local_shape(g.interior_shape), dtype=self.dtype,
+                        device=self.device)
             for g in grids
         )
 
     def _eval(self, node, ev, u, f, omega_lookup):
         if isinstance(node, (system.ZeroApproximation, base.ZeroApproximation)):
-            return self._zeros_for(node)
+            return self._zeros_for(node, u)
         if isinstance(node, (system.RightHandSide, base.RightHandSide)):
             return tuple(f)
         if isinstance(node, (system.Approximation, base.Approximation)):
@@ -581,9 +606,11 @@ class CycleLowering:
                 return self.cgs_apply(op1, ev(node.operand2), node.operand2, ev)
             if isinstance(op1, KrylovSubspaceMethod):
                 apply_a = partial(self.system_apply, op1.operator)
+                rhs = ev(node.operand2)
+                grid = op1.operator.grid[0]
                 return krylov.SOLVERS[op1.name](
-                    apply_a, ev(node.operand2), op1.number_of_iterations,
-                    slab=self._slab(op1.operator.grid[0]))
+                    apply_a, rhs, op1.number_of_iterations, slab=self._slab(grid),
+                    members=_has_members(rhs[0], grid))
             if isinstance(op1, system.InterGridOperator):
                 return self.intergrid_apply(op1, ev(node.operand2))
             if isinstance(op1, system.Operator):
@@ -636,8 +663,9 @@ class CycleLowering:
             return fused
         slabs = [self._slab(g) for g in A.grid]
         masks_per_field = [
-            sops.red_black_masks(tuple(x.shape), x.dtype, x.device, 0 if s is None else s.lo % 2)
-            for x, s in zip(u_cur, slabs)
+            sops.red_black_masks(sops.grid_shape(x, len(g.interior_shape)), x.dtype, x.device,
+                                 0 if s is None else s.lo % 2)
+            for x, s, g in zip(u_cur, slabs, A.grid)
         ]
         for color in range(2):
             r = sops.tree_sub(tuple(f_val), self.system_apply(A, u_cur))
@@ -684,7 +712,7 @@ class CycleLowering:
             if not stencil.is_uniform():
                 return None
             stencil = stencil.as_constant()
-        if not rb_sweep.supports_rb_sweep(tuple(u0[0].shape), stencil, u0[0].dtype,
-                                          self._slab(entry.grid)):
+        grid = sops.grid_shape(u0[0], len(entry.grid.interior_shape))
+        if not rb_sweep.supports_rb_sweep(grid, stencil, u0[0].dtype, self._slab(entry.grid)):
             return None
         return (rb_sweep.red_black_collective_jacobi_sweep(u0[0], f_val[0], omega, stencil),)

@@ -48,6 +48,12 @@ individuals translate, and only those are probed before the outer solve
 On a lowering for a device mesh the branches run on this rank's slabs
 (backend/lowering.py): the levels' iterates and right-hand sides are
 allocated in the local shapes, and the ops exchange halos themselves.
+
+A batch of same-structure programs (the group path, backend/evaluation.py)
+runs as one program with members: a `Program` whose ω is a (B, length)
+array, one row per member, over levels shaped (B, *local).  As in the
+reference's vmap over the program's ω slice, only ω is batched, never the
+opcodes.
 """
 
 from __future__ import annotations
@@ -73,8 +79,25 @@ PAD_CLASSES = (64, 160, 320)
 
 class Program(NamedTuple):
     opcodes: np.ndarray  # int32[length]
-    omegas: np.ndarray  # float32[length]; or a float32 tensor on the device
+    # float32[length], or [B, length] for B members; or a float32 tensor
+    # on the device
+    omegas: np.ndarray
     length: int
+
+
+def batched_program(programs) -> Program:
+    """Same-structure programs as one program with a member per row of ω."""
+    first = programs[0]
+    return Program(first.opcodes, np.stack([np.asarray(p.omegas[:p.length], dtype=np.float32)
+                                            for p in programs]), first.length)
+
+
+def _omega_at(omegas: torch.Tensor, i: int, like: torch.Tensor) -> torch.Tensor:
+    """Instruction i's ω: a 0-d view, or per member viewed to scale fields
+    shaped like `like`."""
+    if omegas.dim() == 1:
+        return omegas[i]
+    return sops.per_member(omegas[:, i], like)
 
 
 def device_omegas(program: Program, device) -> torch.Tensor:
@@ -190,8 +213,9 @@ class CycleVM:
 
             def branch(state, omega):
                 u, f = state
+                members = sops.member_shape(u[level][0], len(coarse_shapes[0]))
                 u_c = tuple(
-                    torch.zeros(lowering.local_shape(s), dtype=lowering.dtype,
+                    torch.zeros(members + lowering.local_shape(s), dtype=lowering.dtype,
                                 device=lowering.device)
                     for s in coarse_shapes
                 )
@@ -393,19 +417,21 @@ class CycleVM:
         shapes = self._shapes
         lowering = self.lowering
 
-        def zeros(level):
+        def zeros(level, members):
             return tuple(
-                torch.zeros(lowering.local_shape(s), dtype=lowering.dtype, device=lowering.device)
+                torch.zeros(members + lowering.local_shape(s), dtype=lowering.dtype,
+                            device=lowering.device)
                 for s in shapes[level]
             )
 
         def step(u: Tuple, f: Tuple, program: Program) -> Tuple:
-            u_all = (tuple(u),) + tuple(zeros(i) for i in range(1, len(shapes)))
-            f_all = (tuple(f),) + tuple(zeros(i) for i in range(1, len(shapes)))
+            members = sops.member_shape(u[0], len(shapes[0][0]))
+            u_all = (tuple(u),) + tuple(zeros(i, members) for i in range(1, len(shapes)))
+            f_all = (tuple(f),) + tuple(zeros(i, members) for i in range(1, len(shapes)))
             state = (u_all, f_all)
             omegas = device_omegas(program, lowering.device)
             for i, op in enumerate(program.opcodes[:program.length].tolist()):
-                state = branches[op](state, omegas[i])
+                state = branches[op](state, _omega_at(omegas, i, u[0]))
             return state[0][0]
 
         step.layout = lowering.layout
@@ -414,8 +440,8 @@ class CycleVM:
         step.vm = self
         return step
 
-    def make_state(self) -> "LevelState":
-        return LevelState(self)
+    def make_state(self, members: Optional[int] = None) -> "LevelState":
+        return LevelState(self, members)
 
 
 def _write(dst: Tuple, src: Tuple) -> None:
@@ -444,37 +470,46 @@ class LevelState:
     int64) and the ω buffer (float32, PAD_CLASSES[-1] entries), all
     allocated once.  A caller writes the finest level (`u`, `f`) and loads
     a program's ω; `prologue` and `body(opcode)` are what
-    backend/graphs.Interpreter captures."""
+    backend/graphs.Interpreter captures.  With `members` = B every level is
+    shaped (B, *local) and the ω buffer (B, PAD_CLASSES[-1]), one row per
+    member, for a batch of same-structure programs."""
 
-    def __init__(self, vm: CycleVM):
+    def __init__(self, vm: CycleVM, members: Optional[int] = None):
         self.vm = vm
+        self.members = members
         lowering = vm.lowering
+        lead = () if members is None else (members,)
 
         def level(shapes):
-            return tuple(torch.zeros(lowering.local_shape(s), dtype=lowering.dtype,
+            return tuple(torch.zeros(lead + lowering.local_shape(s), dtype=lowering.dtype,
                                      device=lowering.device) for s in shapes)
 
         self.u_all = tuple(level(shapes) for shapes in vm._shapes)
         self.f_all = tuple(level(shapes) for shapes in vm._shapes)
         self.u, self.f = self.u_all[0], self.f_all[0]
         self.pc = torch.zeros((), dtype=torch.int64, device=lowering.device)
-        self.omegas = torch.ones(PAD_CLASSES[-1], dtype=torch.float32, device=lowering.device)
+        self.omegas = torch.ones(lead + (PAD_CLASSES[-1],), dtype=torch.float32,
+                                 device=lowering.device)
 
     def tensors(self) -> Tuple[torch.Tensor, ...]:
         return sum(self.u_all, ()) + sum(self.f_all, ()) + (self.pc, self.omegas)
 
     def load(self, program: Program) -> List[int]:
-        """Copy the program's ω (a numpy vector, as `translate` makes it)
-        into the buffer; returns its opcodes."""
+        """Copy the program's ω (a numpy vector, as `translate` makes it,
+        or one row per member, as `batched_program` makes it) into the
+        buffer; returns its opcodes."""
         n = program.length
-        self.omegas[:n].copy_(torch.from_numpy(
-            np.ascontiguousarray(program.omegas[:n], dtype=np.float32)))
+        self.omegas[..., :n].copy_(torch.from_numpy(
+            np.ascontiguousarray(program.omegas[..., :n], dtype=np.float32)))
         return program.opcodes[:n].tolist()
 
     def omega(self) -> torch.Tensor:
         """The current instruction's ω, omegas[pc], read on the device
-        (indexing with the 0-d `pc` itself would read it to the host)."""
-        return self.omegas.index_select(0, self.pc.view(1)).view(())
+        (indexing with the 0-d `pc` itself would read it to the host); with
+        members one per member, viewed to scale the members' fields."""
+        if self.members is None:
+            return self.omegas.index_select(0, self.pc.view(1)).view(())
+        return sops.per_member(self.omegas.index_select(1, self.pc.view(1)), self.u[0])
 
     def prologue(self) -> None:
         """pc = 0 and the coarse levels zeroed, as `make_step` starts."""

@@ -50,6 +50,11 @@
 // * Tile height from the grid size (launch_shape): two block shapes, each
 //   the fastest of seven timed at its levels.
 // * omega stays a device pointer, for a later CUDA graph.
+// * A batch of same-shape members (the group path's vmap, where the TPU's
+//   Pallas calls get a batch axis prepended to their grid) is one launch
+//   with gridDim.z = batch: block z reads and writes member z at offset
+//   z * rows * cols and takes omega[z].  A member's arithmetic is the
+//   single launch's, so the batch gives the bits of its single launches.
 // Not done: vector loads and TMA need 16-byte aligned rows, and every level
 // width is 2^k - 1; padding the port's array layout would change every op.
 
@@ -62,6 +67,8 @@ namespace {
 constexpr int WARP = 32;
 constexpr int MAX_SIDE = 9;  // 2 * 4 + 1: the largest radius is 4
 constexpr int MAX_ENTRIES = MAX_SIDE * MAX_SIDE;
+// The largest batch: the reference's largest group bucket.
+constexpr int MAX_BATCH = 16;
 
 // The stencil by value: value[(di + R) * (2R + 1) + (dj + R)] for the entry
 // at row offset di and column offset dj, present[k / 32] bit k % 32 set
@@ -108,12 +115,16 @@ rb_sweep_kernel(const float* __restrict__ u, const float* __restrict__ f,
   __shared__ float s_f[RED_ROWS][WARP];
   __shared__ float s_red[RED_ROWS][WARP];
 
+  const ptrdiff_t member = static_cast<ptrdiff_t>(blockIdx.z) * rows * cols;
+  u += member;
+  f += member;
+  out += member;
   const int lane = threadIdx.x;
   const int warp = threadIdx.y;
   const int row0 = blockIdx.y * TILE_ROWS;
   // Red-region column c is global column col0 - R + c, row r is row0 - R + r.
   const int col0 = blockIdx.x * (WARP - 2 * R);
-  const float w = __ldg(omega) * inv_diag;
+  const float w = __ldg(omega + blockIdx.z) * inv_diag;
 
   // Stage u over the red region plus R and f over the red region, zero
   // outside the domain.  Loads first, then the stores, so that all of a
@@ -221,11 +232,12 @@ rb_sweep_kernel(const float* __restrict__ u, const float* __restrict__ f,
 
 template <int R, Pattern P, int TILE_ROWS, int WARPS>
 cudaError_t launch(const float* u, const float* f, float* out, const float* omega,
-                   const Coefficients<R>& a, float inv_diag, int rows, int cols,
+                   const Coefficients<R>& a, float inv_diag, int batch, int rows, int cols,
                    cudaStream_t stream) {
   constexpr int TILE_COLS = WARP - 2 * R;
   const dim3 block(WARP, WARPS);
-  const dim3 grid((cols + TILE_COLS - 1) / TILE_COLS, (rows + TILE_ROWS - 1) / TILE_ROWS);
+  const dim3 grid((cols + TILE_COLS - 1) / TILE_COLS, (rows + TILE_ROWS - 1) / TILE_ROWS,
+                  batch);
   rb_sweep_kernel<R, P, TILE_ROWS, WARPS>
       <<<grid, block, 0, stream>>>(u, f, out, omega, a, inv_diag, rows, cols);
   return cudaGetLastError();
@@ -237,12 +249,12 @@ cudaError_t launch(const float* u, const float* f, float* out, const float* omeg
 // shapes timed at every level of the main path on an H100 (PERF.md).
 template <int R, Pattern P>
 cudaError_t launch_shape(const float* u, const float* f, float* out, const float* omega,
-                         const Coefficients<R>& a, float inv_diag, int rows, int cols,
-                         cudaStream_t stream) {
+                         const Coefficients<R>& a, float inv_diag, int batch, int rows,
+                         int cols, cudaStream_t stream) {
   if (static_cast<long long>(rows) * cols <= 256 * 256) {
-    return launch<R, P, 8, 8>(u, f, out, omega, a, inv_diag, rows, cols, stream);
+    return launch<R, P, 8, 8>(u, f, out, omega, a, inv_diag, batch, rows, cols, stream);
   }
-  return launch<R, P, 12, 4>(u, f, out, omega, a, inv_diag, rows, cols, stream);
+  return launch<R, P, 12, 4>(u, f, out, omega, a, inv_diag, batch, rows, cols, stream);
 }
 
 // The stencil's coefficients for radius R out of the 9 x 9 host arrays, and
@@ -250,7 +262,7 @@ cudaError_t launch_shape(const float* u, const float* f, float* out, const float
 template <int R>
 cudaError_t launch_radius(const float* u, const float* f, float* out, const float* omega,
                           const float* dense, const uint32_t* present, float inv_diag,
-                          int rows, int cols, cudaStream_t stream) {
+                          int batch, int rows, int cols, cudaStream_t stream) {
   Coefficients<R> a;
   bool star = true;
   for (int k = 0; k < Coefficients<R>::COUNT; ++k) {
@@ -263,9 +275,48 @@ cudaError_t launch_radius(const float* u, const float* f, float* out, const floa
     star = star && has == (di * di + dj * dj <= 1);
   }
   if constexpr (R == 1) {
-    if (star) return launch_shape<R, STAR>(u, f, out, omega, a, inv_diag, rows, cols, stream);
+    if (star) {
+      return launch_shape<R, STAR>(u, f, out, omega, a, inv_diag, batch, rows, cols, stream);
+    }
   }
-  return launch_shape<R, GENERIC>(u, f, out, omega, a, inv_diag, rows, cols, stream);
+  return launch_shape<R, GENERIC>(u, f, out, omega, a, inv_diag, batch, rows, cols, stream);
+}
+
+}  // namespace
+
+namespace {
+
+int dispatch(const float* u, const float* f, float* out, const float* omega, const float* dense,
+             const uint32_t* present, int radius, float inv_diag, int batch, int rows, int cols,
+             cudaStream_t stream) {
+  if (batch <= 0 || batch > MAX_BATCH || rows <= 0 || cols <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  for (int m = 0; m < MAX_ENTRIES; ++m) {
+    const int di = m / MAX_SIDE - 4, dj = m % MAX_SIDE - 4;
+    const bool has = (present[m / 32] >> (m % 32)) & 1u;
+    if (has && (di < -radius || di > radius || dj < -radius || dj > radius)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (radius) {
+    case 1:
+      err = launch_radius<1>(u, f, out, omega, dense, present, inv_diag, batch, rows, cols,
+                             stream);
+      break;
+    case 2:
+      err = launch_radius<2>(u, f, out, omega, dense, present, inv_diag, batch, rows, cols,
+                             stream);
+      break;
+    case 4:
+      err = launch_radius<4>(u, f, out, omega, dense, present, inv_diag, batch, rows, cols,
+                             stream);
+      break;
+    default:
+      break;
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -281,27 +332,16 @@ cudaError_t launch_radius(const float* u, const float* f, float* out, const floa
 extern "C" int rb_sweep_f32(const float* u, const float* f, float* out, const float* omega,
                             const float* dense, const uint32_t* present, int radius,
                             float inv_diag, int rows, int cols, cudaStream_t stream) {
-  if (rows <= 0 || cols <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  for (int m = 0; m < MAX_ENTRIES; ++m) {
-    const int di = m / MAX_SIDE - 4, dj = m % MAX_SIDE - 4;
-    const bool has = (present[m / 32] >> (m % 32)) & 1u;
-    if (has && (di < -radius || di > radius || dj < -radius || dj > radius)) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-  cudaError_t err = cudaErrorInvalidValue;
-  switch (radius) {
-    case 1:
-      err = launch_radius<1>(u, f, out, omega, dense, present, inv_diag, rows, cols, stream);
-      break;
-    case 2:
-      err = launch_radius<2>(u, f, out, omega, dense, present, inv_diag, rows, cols, stream);
-      break;
-    case 4:
-      err = launch_radius<4>(u, f, out, omega, dense, present, inv_diag, rows, cols, stream);
-      break;
-    default:
-      break;
-  }
-  return static_cast<int>(err);
+  return dispatch(u, f, out, omega, dense, present, radius, inv_diag, 1, rows, cols, stream);
+}
+
+// The same step for `batch` members (1 to MAX_BATCH) in one launch: u, f,
+// out are batch x rows x cols row-major, member b at offset b * rows * cols,
+// omega holds batch floats on the device, member b's at omega[b].  The rest
+// as rb_sweep_f32.
+extern "C" int rb_sweep_f32_batched(const float* u, const float* f, float* out,
+                                    const float* omega, const float* dense,
+                                    const uint32_t* present, int radius, float inv_diag,
+                                    int batch, int rows, int cols, cudaStream_t stream) {
+  return dispatch(u, f, out, omega, dense, present, radius, inv_diag, batch, rows, cols, stream);
 }

@@ -86,11 +86,16 @@ def library() -> ctypes.CDLL:
             # Every pointer and the stream as c_void_p: ctypes would pass a
             # bare Python int as a 32-bit int and cut the pointer.
             # The stencil's coefficients and presence bits are host arrays.
-            lib.rb_sweep_f32.argtypes = [ctypes.c_void_p] * 4 + [
-                ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint32),
-                ctypes.c_int, ctypes.c_float,
+            stencil = [ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint32),
+                       ctypes.c_int, ctypes.c_float]
+            lib.rb_sweep_f32.argtypes = [ctypes.c_void_p] * 4 + stencil + [
                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ]
             lib.rb_sweep_f32.restype = ctypes.c_int
+            # The batched launch takes the member count before the shape.
+            lib.rb_sweep_f32_batched.argtypes = [ctypes.c_void_p] * 4 + stencil + [
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ]
+            lib.rb_sweep_f32_batched.restype = ctypes.c_int
             _library = lib
         return _library

@@ -6,6 +6,11 @@ lowering time; at run time the solve is one `torch.matmul` (a 961×961
 matvec at level 5, a 49×49 complex one at level 3 of Helmholtz).  That
 product is a library call, as the reference left it to XLA.  The inverse
 stays complex for a complex solver dtype and is cast to real otherwise.
+
+A state with members, fields of shape (B, *grid), is solved member by
+member with the same matrix-vector product: one product over all members
+(a matrix-matrix product) would round otherwise, and B products of the
+coarsest level cost little.
 """
 
 from __future__ import annotations
@@ -72,6 +77,9 @@ class DenseSolveSpec:
         self.inv_device = torch.from_numpy(self.inv).to(device)
 
     def apply(self, r_fields: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+        if r_fields[0].dim() > len(self.field_shapes[0]):
+            solved = [self.apply(member) for member in zip(*r_fields)]
+            return tuple(torch.stack(field) for field in zip(*solved))
         flat = torch.cat([r.reshape(-1) for r in r_fields])
         sol = torch.matmul(self.inv_device, flat)
         out = []

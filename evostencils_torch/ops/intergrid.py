@@ -15,6 +15,9 @@ With a `slab` (the fine grid's rows on this rank, parallel/mesh.py) both
 run on this rank's rows: the coarse rows it owns are those whose fine row
 c·(ci+1)−1 it owns (`RowSlab.coarse_rows`), so the row axis starts at that
 fine row instead of c−1, and the stencil's reach comes from the halo.
+
+A field with members, (B, *grid), is restricted and prolonged on its
+trailing grid axes, member by member alike (ops/stencil_ops.py).
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from typing import Tuple
 
 import torch
 
-from evostencils_torch.ops.stencil_ops import apply_constant_stencil, pad, scalar
+from evostencils_torch.ops.stencil_ops import apply_constant_stencil, member_shape, pad, scalar
 from evostencils_torch.stencils import constant
 
 
@@ -50,10 +53,11 @@ def restrict(
             slice(s + o + r, s + o + r + c * (m - 1) + 1, c)
             for s, c, o, r, m in zip(first, coarsening, offset, reach, coarse_shape)
         )
-        term = scalar(value) * padded[index]
+        term = scalar(value) * padded[(Ellipsis,) + index]
         out = term if out is None else out + term
     if out is None:
-        return torch.zeros(coarse_shape, dtype=fine.dtype, device=fine.device)
+        return torch.zeros(member_shape(fine, len(coarse_shape)) + tuple(coarse_shape),
+                           dtype=fine.dtype, device=fine.device)
     return out
 
 
@@ -66,8 +70,9 @@ def inject_to_fine(
     first = [c - 1 for c in coarsening]
     if slab is not None:
         first[0] = coarsening[0] * (slab.coarse_rows(coarsening[0])[0] + 1) - 1 - slab.lo
-    fine = torch.zeros(fine_shape, dtype=coarse.dtype, device=coarse.device)
-    fine[tuple(slice(s, None, c) for s, c in zip(first, coarsening))] = coarse
+    fine = torch.zeros(member_shape(coarse, len(fine_shape)) + tuple(fine_shape),
+                       dtype=coarse.dtype, device=coarse.device)
+    fine[(Ellipsis,) + tuple(slice(s, None, c) for s, c in zip(first, coarsening))] = coarse
     return fine
 
 

@@ -18,7 +18,10 @@ or a lowered structure's own graph.
 Plain torch: the reductions and updates are library calls, as the
 reference left them to XLA.  With a `slab` (a state split by rows over a
 device mesh, parallel/mesh.py) every inner product is all-reduced, so each
-rank computes the same coefficients and takes the same decisions.
+rank computes the same coefficients and takes the same decisions.  With
+`members=True` (fields shaped (B, *grid), the group path's batch) the
+fixed-count solvers take one inner product per member, viewed (B, 1, …),
+so every member runs its own recurrence.
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ import numpy as np
 import torch
 
 from evostencils_torch.backend import graphs
-from evostencils_torch.ops.stencil_ops import dot, tree_add, tree_scale, tree_sub, zeros_like_state
+from evostencils_torch.ops.stencil_ops import (
+    dot, per_member, tree_add, tree_scale, tree_sub, zeros_like_state)
 
 State = Sequence[torch.Tensor]
 _EPS = 1e-30
@@ -42,37 +46,48 @@ def _safe_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a / torch.where(torch.abs(b) < _EPS, torch.full_like(b, _EPS), b)
 
 
+def _inner(slab, members: bool) -> Callable:
+    """The solvers' inner product: a 0-d tensor, or one per member viewed
+    to scale the members' fields."""
+    if not members:
+        return lambda a, b: dot(a, b, slab)
+    return lambda a, b: per_member(dot(a, b, slab, members=True), a[0])
+
+
 def conjugate_gradient(apply_a: Callable, rhs: State, iterations: int,
-                       x0: Optional[State] = None, slab=None) -> State:
+                       x0: Optional[State] = None, slab=None, members: bool = False) -> State:
+    inner = _inner(slab, members)
     x = zeros_like_state(rhs) if x0 is None else tuple(x0)
     r = tree_sub(rhs, apply_a(x)) if x0 is not None else tuple(rhs)
     p = r
-    rr = dot(r, r, slab)
+    rr = inner(r, r)
     for _ in range(iterations):
         ap = apply_a(p)
-        alpha = _safe_div(rr, dot(p, ap, slab))
+        alpha = _safe_div(rr, inner(p, ap))
         x = tree_add(x, tree_scale(alpha, p))
         r = tree_sub(r, tree_scale(alpha, ap))
-        rr_new = dot(r, r, slab)
+        rr_new = inner(r, r)
         beta = _safe_div(rr_new, rr)
         p = tree_add(r, tree_scale(beta, p))
         rr = rr_new
     return x
 
 
-def conjugate_residual(apply_a: Callable, rhs: State, iterations: int, slab=None) -> State:
+def conjugate_residual(apply_a: Callable, rhs: State, iterations: int, slab=None,
+                       members: bool = False) -> State:
+    inner = _inner(slab, members)
     x = zeros_like_state(rhs)
     r = tuple(rhs)
     p = r
     ar = apply_a(r)
     ap = ar
-    rar = dot(r, ar, slab)
+    rar = inner(r, ar)
     for _ in range(iterations):
-        alpha = _safe_div(rar, dot(ap, ap, slab))
+        alpha = _safe_div(rar, inner(ap, ap))
         x = tree_add(x, tree_scale(alpha, p))
         r = tree_sub(r, tree_scale(alpha, ap))
         ar = apply_a(r)
-        rar_new = dot(r, ar, slab)
+        rar_new = inner(r, ar)
         beta = _safe_div(rar_new, rar)
         p = tree_add(r, tree_scale(beta, p))
         ap = tree_add(ar, tree_scale(beta, ap))
@@ -80,26 +95,29 @@ def conjugate_residual(apply_a: Callable, rhs: State, iterations: int, slab=None
     return x
 
 
-def minres(apply_a: Callable, rhs: State, iterations: int, slab=None) -> State:
+def minres(apply_a: Callable, rhs: State, iterations: int, slab=None,
+           members: bool = False) -> State:
     """MinRes via the conjugate-residual recurrence (symmetric A)."""
-    return conjugate_residual(apply_a, rhs, iterations, slab)
+    return conjugate_residual(apply_a, rhs, iterations, slab, members)
 
 
-def bicgstab(apply_a: Callable, rhs: State, iterations: int, slab=None) -> State:
+def bicgstab(apply_a: Callable, rhs: State, iterations: int, slab=None,
+             members: bool = False) -> State:
+    inner = _inner(slab, members)
     x = zeros_like_state(rhs)
     r = tuple(rhs)
     r_hat = r
     p = r
-    rho = dot(r_hat, r, slab)
+    rho = inner(r_hat, r)
     for _ in range(iterations):
         v = apply_a(p)
-        alpha = _safe_div(rho, dot(r_hat, v, slab))
+        alpha = _safe_div(rho, inner(r_hat, v))
         s = tree_sub(r, tree_scale(alpha, v))
         t = apply_a(s)
-        omega = _safe_div(dot(t, s, slab), dot(t, t, slab))
+        omega = _safe_div(inner(t, s), inner(t, t))
         x = tree_add(x, tree_add(tree_scale(alpha, p), tree_scale(omega, s)))
         r = tree_sub(s, tree_scale(omega, t))
-        rho_new = dot(r_hat, r, slab)
+        rho_new = inner(r_hat, r)
         beta = _safe_div(rho_new * alpha, rho * omega)
         p = tree_add(r, tree_scale(beta, tree_sub(p, tree_scale(omega, v))))
         rho = rho_new

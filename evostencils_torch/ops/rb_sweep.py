@@ -6,6 +6,11 @@ evostencils_tpu/ops/pallas_kernels.py: one step of red-black point Jacobi
 for a scalar 2D real constant stencil, both colours in one launch.  The
 wrapper takes the plain version for tensors on the CPU only; for CUDA
 tensors it launches the kernel or raises.
+
+A state with members, `(B, rows, cols)` with one ω per member, is one
+batched launch (the reference's group path vmaps its Pallas calls, which
+prepends a batch axis to their grids): member b is the single launch's
+step on u[b], f[b] with ω[b], bit for bit.
 """
 
 from __future__ import annotations
@@ -33,11 +38,14 @@ TEMPLATE_RADII = (1, 2, 4)
 WHOLE_ARRAY_CELLS = 512 * 512
 BLOCK_ROWS = 128
 MAX_BLOCKED_CELLS = 16384 * 16384
+# Most members of one batched launch: the reference's largest group bucket.
+MAX_MEMBERS = 16
 # Side of the dense coefficient grid the kernel's C entry point reads.
 _SIDE = 2 * MAX_RADIUS + 1
 
-# Kernel launches that reached the device, by grid shape (rows, cols),
-# since the last clear(): each eager launch where the wrapper launches, and
+# Kernel launches that reached the device, by grid shape (rows, cols), or
+# (members, rows, cols) for a batched launch, since the last clear(): each
+# eager launch where the wrapper launches, and
 # each launch a CUDA-graph replay runs (backend/graphs.py adds the launches
 # its capture recorded once per replay).  A capture itself launches nothing
 # and counts nothing.
@@ -129,14 +137,17 @@ def rb_sweep_reference(u, f, omega, stencil: constant.Stencil) -> torch.Tensor:
     """Plain torch version: two masked half-sweeps, the residual recomputed
     from the post-red values for black, w = ω·(1/centre) rounded as the
     kernel rounds it.  A float ω becomes a filled tensor, never one made
-    from host data, so the plain cycle, too, can be captured."""
+    from host data, so the plain cycle, too, can be captured.  With members
+    (u, f of shape (B, rows, cols)) ω is a tensor of B values, or one float
+    for all."""
+    scale = (u.shape[0], 1, 1) if u.dim() == 3 else ()
     if torch.is_tensor(omega):
-        w = omega.to(dtype=u.dtype, device=u.device).reshape(())
+        w = omega.to(dtype=u.dtype, device=u.device).reshape(scale)
     else:
-        w = torch.full((), float(omega), dtype=u.dtype, device=u.device)
+        w = torch.full(scale, float(omega), dtype=u.dtype, device=u.device)
     w = w * float(1.0 / stencil.center_value())
     # red = (row + col) even, on interior indices starting at 0.
-    for mask in red_black_masks(tuple(u.shape), torch.bool, u.device):
+    for mask in red_black_masks(tuple(u.shape[-2:]), torch.bool, u.device):
         r = f - apply_constant_stencil(u, stencil)
         u = u + torch.where(mask, w * r, 0.0)
     return u
@@ -161,29 +172,36 @@ def _cached_omega(value: float, device: str) -> torch.Tensor:
     return torch.full((1,), value, dtype=torch.float32, device=device)
 
 
-def _device_omega(omega, device) -> torch.Tensor:
-    """ω as a one-element float32 tensor on `device`: a tensor ω as its
-    view, which a CUDA graph reads anew at every replay; a float ω reuses
-    one cached tensor per (value, device), so it launches no fill kernel per
-    sweep.  Under a capture a float ω gets a tensor of the graph's own: a
-    cached one filled there would live in the graph's pool and hold its
-    value only once the graph has replayed."""
+def _device_omega(omega, device, members: int = 1) -> torch.Tensor:
+    """ω as a float32 tensor of `members` contiguous values on `device`: a
+    tensor ω as its view (a copy where it is strided), which a CUDA graph
+    reads anew at every replay; a float ω for one member reuses one cached
+    tensor per (value, device), so it launches no fill kernel per sweep.
+    Under a capture a float ω gets a tensor of the graph's own: a cached one
+    filled there would live in the graph's pool and hold its value only once
+    the graph has replayed."""
     if torch.is_tensor(omega):
-        return omega.to(device=device, dtype=torch.float32).reshape(1)
-    if torch.device(device).type == "cuda" and torch.cuda.is_current_stream_capturing():
-        return torch.full((1,), float(omega), dtype=torch.float32, device=device)
+        return omega.to(device=device, dtype=torch.float32).reshape(members).contiguous()
+    if members > 1 or (torch.device(device).type == "cuda"
+                       and torch.cuda.is_current_stream_capturing()):
+        return torch.full((members,), float(omega), dtype=torch.float32, device=device)
     return _cached_omega(float(omega), str(device))
 
 
 def red_black_collective_jacobi_sweep(u, f, omega, stencil: constant.Stencil) -> torch.Tensor:
     """One red-black point-Jacobi step, both colours: the CUDA kernel for
     CUDA tensors, the plain version for CPU tensors.  `omega` is a float
-    or a one-element float32 tensor on u's device."""
+    or a one-element float32 tensor on u's device.  u and f of shape (B,
+    rows, cols), 1 ≤ B ≤ MAX_MEMBERS, take one batched launch, with ω a
+    tensor of B values (one per member) or a float."""
     if u.device.type == "cpu":
         return rb_sweep_reference(u, f, omega, stencil)
     if u.device.type != "cuda":
         raise ValueError(f"red-black sweep: no kernel for device {u.device}")
-    if not supports_rb_sweep(tuple(u.shape), stencil, u.dtype):
+    batched = u.dim() == 3
+    if batched and not 1 <= u.shape[0] <= MAX_MEMBERS:
+        raise ValueError(f"red-black sweep: {u.shape[0]} members, at most {MAX_MEMBERS}")
+    if not supports_rb_sweep(tuple(u.shape[-2:]), stencil, u.dtype) or u.dim() not in (2, 3):
         raise ValueError(f"red-black sweep: unsupported {u.dtype} {tuple(u.shape)} {stencil!r}")
     if f.shape != u.shape or f.dtype != u.dtype or f.device != u.device:
         raise ValueError("red-black sweep: u and f differ in shape, dtype or device")
@@ -191,21 +209,25 @@ def red_black_collective_jacobi_sweep(u, f, omega, stencil: constant.Stencil) ->
     recorded = getattr(_recording, "counter", None)
     if capturing and recorded is None:
         raise CudaKernelError(
-            "rb_sweep_f32 under a CUDA-graph capture that backend/graphs.capture "
+            "the red-black sweep under a CUDA-graph capture that backend/graphs.capture "
             "did not start: its replays would not be counted")
     u = u.contiguous()
     f = f.contiguous()
-    omega_arg = _device_omega(omega, u.device)
+    omega_arg = _device_omega(omega, u.device, u.shape[0] if batched else 1)
     radius, dense, present, inv_diag = _kernel_stencil(stencil)
     out = torch.empty_like(u)
     lib = _build.library()
-    err = lib.rb_sweep_f32(
-        u.data_ptr(), f.data_ptr(), out.data_ptr(), omega_arg.data_ptr(),
-        dense, present, radius, inv_diag, u.shape[0], u.shape[1],
-        torch.cuda.current_stream(u.device).cuda_stream,
-    )
+    pointers = (u.data_ptr(), f.data_ptr(), out.data_ptr(), omega_arg.data_ptr(),
+                dense, present, radius, inv_diag)
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    if batched:
+        name = "rb_sweep_f32_batched"
+        err = lib.rb_sweep_f32_batched(*pointers, *u.shape, stream)
+    else:
+        name = "rb_sweep_f32"
+        err = lib.rb_sweep_f32(*pointers, *u.shape, stream)
     if err != 0:
-        raise CudaKernelError(f"rb_sweep_f32 did not launch: CUDA error {err}")
+        raise CudaKernelError(f"{name} did not launch: CUDA error {err}")
     if capturing:
         # The capture records the launch; each replay counts it.
         recorded[tuple(u.shape)] += 1

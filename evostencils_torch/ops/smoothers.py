@@ -14,6 +14,11 @@ are elementwise and need nothing; the block solve reads up to period−1
 rows across the slab's edge, so it takes that many halo rows, tiles its
 coefficient planes from the slab's global row, and its matmul form solves
 the whole blocks that cover the slab and keeps the slab's rows.
+
+Fields with members, (B, *grid), are smoothed on their trailing grid axes:
+the point smoothers broadcast, the masked block form shifts the grid axes,
+and the matmul form folds the members into the rows of its one product,
+which rounds each row as the single member's product does.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from evostencils_torch import dtype_is_complex, numpy_dtype
-from evostencils_torch.ops.stencil_ops import scalar
+from evostencils_torch.ops.stencil_ops import member_shape, scalar
 from evostencils_torch.parallel.mesh import halo_exchange
 from evostencils_torch.stencils import periodic
 
@@ -75,14 +80,16 @@ def collective_jacobi_apply_variable(
 
 
 def _shift(r: torch.Tensor, d: Tuple[int, ...]) -> torch.Tensor:
-    """out[x] = r[x + d], zero-filled outside the array."""
+    """out[x] = r[x + d] on the trailing len(d) axes, zero-filled outside
+    the array."""
     if all(da == 0 for da in d):
         return r
-    src = tuple(slice(max(da, 0), n + min(da, 0)) for da, n in zip(d, r.shape))
+    src = tuple(slice(max(da, 0), n + min(da, 0))
+                for da, n in zip(d, r.shape[r.dim() - len(d):]))
     pads = []
     for da in reversed(d):
         pads += [max(-da, 0), max(da, 0)]
-    return F.pad(r[src], pads)
+    return F.pad(r[(Ellipsis,) + src], pads)
 
 
 class BlockSolveSpec:
@@ -157,7 +164,7 @@ class BlockSolveSpec:
         return self.apply_masked(r_fields, slab)
 
     def apply_masked(self, r_fields: Sequence[torch.Tensor], slab=None) -> Tuple[torch.Tensor, ...]:
-        shape = tuple(r_fields[0].shape)
+        shape = tuple(r_fields[0].shape[r_fields[0].dim() - len(self.period):])
         device = r_fields[0].device
         halo = self.period[0] - 1
         if slab is None or halo == 0:
@@ -204,12 +211,16 @@ class BlockSolveSpec:
             solved = self.apply_matmul(blocks)
             return tuple(x[slab.lo - a:slab.hi - a] for x in solved)
         period = self.period
-        shape = tuple(r_fields[0].shape)
-        dim = len(shape)
+        dim = len(period)
+        # Members, if any, lead: they are folded into the blocks' rows.
+        lead = member_shape(r_fields[0], dim)
+        k = len(lead)
+        shape = tuple(r_fields[0].shape[k:])
         padded_shape = tuple(-(-n // p) * p for n, p in zip(shape, period))
         blocks_per_axis = tuple(ps // p for ps, p in zip(padded_shape, period))
-        n_blocks = int(np.prod(blocks_per_axis))
-        perm = tuple(range(0, 2 * dim, 2)) + tuple(range(1, 2 * dim, 2))
+        n_blocks = int(np.prod(lead + blocks_per_axis))
+        perm = (tuple(range(k)) + tuple(range(k, k + 2 * dim, 2))
+                + tuple(range(k + 1, k + 2 * dim, 2)))
 
         cols = []
         for r in r_fields:
@@ -218,19 +229,20 @@ class BlockSolveSpec:
                 pads += [0, ps - n]
             rp = F.pad(r, pads)
             # (B0, p0, B1, p1, ...) -> (B0, B1, ..., p0, p1, ...)
-            interleaved = rp.reshape(tuple(x for bp in zip(blocks_per_axis, period) for x in bp))
+            interleaved = rp.reshape(
+                lead + tuple(x for bp in zip(blocks_per_axis, period) for x in bp))
             cols.append(interleaved.permute(perm).reshape(n_blocks, self.block_dofs))
         rhs = torch.cat(cols, dim=1)  # (n_blocks, n_fields*block_dofs)
         sol = torch.matmul(rhs, self.inv_l_device.T)
-        inv_perm = []
+        inv_perm = list(range(k))
         for axis in range(dim):
-            inv_perm.extend([axis, dim + axis])
+            inv_perm.extend([k + axis, k + dim + axis])
         out = []
         for i in range(self.n_fields):
             piece = sol[:, i * self.block_dofs:(i + 1) * self.block_dofs]
-            piece = piece.reshape(blocks_per_axis + period)
-            unblocked = piece.permute(tuple(inv_perm)).reshape(padded_shape)
-            out.append(unblocked[tuple(slice(0, n) for n in shape)])
+            piece = piece.reshape(lead + blocks_per_axis + period)
+            unblocked = piece.permute(tuple(inv_perm)).reshape(lead + padded_shape)
+            out.append(unblocked[(Ellipsis,) + tuple(slice(0, n) for n in shape)])
         return tuple(out)
 
 

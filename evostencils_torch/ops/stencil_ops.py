@@ -15,6 +15,14 @@ over a device mesh.  The row halo comes from `halo_exchange` in place of
 the zero rows, colour and period masks start at the slab's global row, and
 sums are all-reduced before a norm is taken.  `slab=None` is the whole
 grid on one device.
+
+A state with members (the group path's batch of same-structure cycles,
+backend/evaluation.py) holds each field as one tensor of shape (B, *grid):
+the grid is always the trailing axes, as many as the stencil's or the
+grid's dimension, and every op indexes those, so a member's values are the
+single-member op's on that member, bit for bit.  `members=True` makes a
+norm or an inner product one value per member, shape (B,), each summed
+over its own elements.  A mesh slab takes no members.
 """
 
 from __future__ import annotations
@@ -39,8 +47,21 @@ def scalar(value):
     return value.real if value.imag == 0.0 else value
 
 
+def grid_shape(u: torch.Tensor, dimension: int) -> Tuple[int, ...]:
+    """The grid's shape: the trailing `dimension` axes of a field, with
+    members or without."""
+    return tuple(u.shape[u.dim() - dimension:])
+
+
+def member_shape(u: torch.Tensor, dimension: int) -> Tuple[int, ...]:
+    """The leading member axes of a field on a `dimension`-D grid: () for
+    a single member."""
+    return tuple(u.shape[:u.dim() - dimension])
+
+
 def pad_zeros(u: torch.Tensor, reach: Tuple[int, ...]) -> torch.Tensor:
-    """Zero-pad by the stencil reach (homogeneous Dirichlet halo)."""
+    """Zero-pad the trailing axes by the stencil reach (homogeneous
+    Dirichlet halo)."""
     if all(r == 0 for r in reach):
         return u
     pads = []
@@ -59,8 +80,10 @@ def pad(u: torch.Tensor, reach: Tuple[int, ...], slab=None) -> torch.Tensor:
 
 
 def shifted_view(padded: torch.Tensor, offset, reach, shape) -> torch.Tensor:
+    """The window of the padded grid shifted by `offset`, on the trailing
+    axes."""
     index = tuple(slice(r + o, r + o + n) for r, o, n in zip(reach, offset, shape))
-    return padded[index]
+    return padded[(Ellipsis,) + index]
 
 
 def apply_constant_stencil(u: torch.Tensor, stencil: constant.Stencil, slab=None) -> torch.Tensor:
@@ -69,7 +92,7 @@ def apply_constant_stencil(u: torch.Tensor, stencil: constant.Stencil, slab=None
         return torch.zeros_like(u)
     reach = stencil.max_reach()
     padded = pad(u, reach, slab)
-    shape = u.shape
+    shape = grid_shape(u, len(reach))
     out = None
     for offset, value in stencil.entries:
         term = scalar(value) * shifted_view(padded, offset, reach, shape)
@@ -88,7 +111,7 @@ def apply_variable_stencil(u: torch.Tensor, offsets, planes, slab=None) -> torch
     in offset order."""
     reach = variable_reach(offsets)
     padded = pad(u, reach, slab)
-    shape = u.shape
+    shape = grid_shape(u, len(reach))
     out = None
     for offset, plane in zip(offsets, planes):
         term = plane * shifted_view(padded, offset, reach, shape)
@@ -130,7 +153,7 @@ def apply_periodic_stencil(u: torch.Tensor, stencil: periodic.PeriodicStencil,
     """Apply a block-varying stencil by masked superposition of its cells."""
     if stencil.is_uniform():
         return apply_constant_stencil(u, stencil.as_constant(), slab)
-    masks = parity_masks(tuple(u.shape), stencil.period, u.dtype, u.device,
+    masks = parity_masks(grid_shape(u, stencil.dimension), stencil.period, u.dtype, u.device,
                          0 if slab is None else slab.lo)
     out = torch.zeros_like(u)
     for index in np.ndindex(*stencil.period):
@@ -179,25 +202,47 @@ def _all_reduced(acc: torch.Tensor, slab) -> torch.Tensor:
     return acc if slab is None else slab.layout.all_reduce_sum(acc)
 
 
-def l2_norm(fields: Sequence[torch.Tensor], slab=None) -> torch.Tensor:
+def _sum(x: torch.Tensor, members: bool) -> torch.Tensor:
+    """Σ over every element, or over each member's own elements (shape
+    (B,)).  On the CPU each member's sum is the single-member call on its
+    block, so it gives the single sum's bits (torch splits a long reduction
+    over threads, and one reduction over the member axis splits it
+    otherwise); on the card one reduction over the member axis, whose order
+    may differ from the single sum's in the last bits."""
+    if not members:
+        return torch.sum(x)
+    if x.device.type == "cpu":
+        return torch.stack([torch.sum(member) for member in x])
+    return torch.sum(x, dim=tuple(range(1, x.dim())))
+
+
+def l2_norm(fields: Sequence[torch.Tensor], slab=None, members: bool = False) -> torch.Tensor:
     """Euclidean norm over all fields of a system state (0-dim real
-    tensor; Σ real(f·conj f) for complex fields); on slabs the sum of every
-    rank's sums."""
+    tensor, or one per member; Σ real(f·conj f) for complex fields); on
+    slabs the sum of every rank's sums."""
     acc = None
     for f in fields:
-        s = torch.sum(torch.real(f * torch.conj(f))) if f.is_complex() else torch.sum(f * f)
+        s = _sum(torch.real(f * torch.conj(f)) if f.is_complex() else f * f, members)
         acc = s if acc is None else acc + s
     return torch.sqrt(_all_reduced(acc, slab))
 
 
-def dot(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor], slab=None) -> torch.Tensor:
-    """Σ conj(x)·y over all fields: the conjugate is on the first argument;
-    on slabs the sum of every rank's sums."""
+def dot(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor], slab=None,
+        members: bool = False) -> torch.Tensor:
+    """Σ conj(x)·y over all fields (one per member with `members`): the
+    conjugate is on the first argument; on slabs the sum of every rank's
+    sums."""
     acc = None
     for x, y in zip(a, b):
-        s = torch.sum(torch.conj(x) * y) if x.is_complex() else torch.sum(x * y)
+        s = _sum(torch.conj(x) * y if x.is_complex() else x * y, members)
         acc = s if acc is None else acc + s
     return _all_reduced(acc, slab)
+
+
+def per_member(value: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A (B,) value viewed as (B, 1, …) to scale the fields shaped like
+    `like`."""
+    return value.view((-1,) + (1,) * (like.dim() - 1))
 
 
 def tree_add(a, b):

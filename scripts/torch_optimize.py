@@ -424,7 +424,8 @@ def run(argv=None) -> Run:
     evolution_s = time.perf_counter() - start
     print(f"Evaluations: {optimizer._total_number_of_evaluations} in "
           f"{evolution_s:.2f} s, {generator.group_members} of them in "
-          f"{generator.groups} same-structure groups; cache hits "
+          f"{generator.groups} same-structure groups ({generator.groups_batched} batched, "
+          f"{generator.group_s:.2f} s); cache hits "
           f"{optimizer._individual_cache_hits}")
     print(f"\nBest individual:\n{best}")
     tuning = None

@@ -550,3 +550,69 @@ def test_per_cycle_time_refuses_a_cycle_with_a_host_sync(cuda):
 
     with pytest.raises(CudaGraphError, match="cannot be captured"):
         per_cycle_time(synchronizing, u0, f, iters=2, repeats=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("members", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("shape", [(63, 63), (511, 511), (1023, 1023), (161, 96)])
+def test_batched_kernel_is_its_single_launches(cuda, members, shape):
+    # One launch for the members, counted under (members, rows, cols): bit
+    # for bit the single launch on each member with its own ω, and within
+    # 5e-5 of the batched plain version.
+    stencil = constant.Stencil(ENTRIES["9-point"])
+    rng = np.random.default_rng(members)
+    u, f = (torch.from_numpy(rng.standard_normal((members,) + shape).astype(np.float32)).to(cuda)
+            for _ in range(2))
+    omegas = torch.linspace(0.7, 1.3, members, device=cuda)
+    key = (members,) + shape
+    before = rb_sweep.launches[key]
+    out = rb_sweep.red_black_collective_jacobi_sweep(u, f, omegas, stencil)
+    torch.cuda.synchronize()
+    assert rb_sweep.launches[key] == before + 1
+    singles = torch.stack([rb_sweep.red_black_collective_jacobi_sweep(u[b], f[b], omegas[b], stencil)
+                           for b in range(members)])
+    assert torch.equal(out, singles)
+    assert float((out - rb_sweep.rb_sweep_reference(u, f, omegas, stencil)).abs().max()) < 5e-5
+
+
+@pytest.mark.cuda
+def test_batched_kernel_refuses_more_members_than_the_largest_bucket(cuda):
+    u = torch.zeros((rb_sweep.MAX_MEMBERS + 1, 31, 31), device=cuda)
+    with pytest.raises(ValueError):
+        rb_sweep.red_black_collective_jacobi_sweep(u, u, 1.0, constant.Stencil(ENTRIES["5-point"]))
+
+
+@pytest.mark.cuda
+def test_batched_group_on_the_card_matches_its_single_evaluations(cuda):
+    # The champion's ω variants at 127² (levels 3-7): one batched loop on
+    # the bucket's interpreter, the sweeps batched launches, each member's ρ
+    # within 1e-5 relative of its own evaluation and its iterations equal
+    # (±1 only where ρ sits on a boundary of that band).
+    from evostencils_torch.utils.champions import apply_stored_omegas, parse_champion_file
+
+    problem = poisson_2d(3, 7, dtype=torch.float32)
+    pset, _ = generate_primitive_set(
+        problem.approximation(), problem.rhs(), problem.dimension,
+        problem.coarsening_factors, problem.max_level, problem.equations,
+        problem.operators, problem.fields, depth=4, maximum_local_system_size=8)
+    tree_string, stored = parse_champion_file(
+        os.path.join(os.path.dirname(os.path.dirname(__file__)), "artifacts",
+                      "poisson2d_champion_r2_tuned.txt"))
+    rng = np.random.default_rng(13)
+    members = []
+    for i in range(5):
+        expr = gp.compile_tree(gp.parse_tree(tree_string, pset), pset)[0]
+        omegas = stored if i == 0 else np.clip(
+            np.asarray(stored) * rng.uniform(0.85, 1.1, len(stored)), 0.1, 1.9)
+        apply_stored_omegas(expr, list(omegas), label="variant")
+        members.append(expr)
+    generator = TorchProgramGenerator(problem, dtype=torch.float32, device=cuda)
+    rb_sweep.clear_counts()
+    group = generator.generate_and_evaluate_group(members, evaluation_samples=1)
+    assert generator.groups_batched == 1 and generator.batched_members == 5
+    assert any(len(key) == 3 and key[0] == 8 for key in rb_sweep.launches)
+    singles = [generator.generate_and_evaluate(e, evaluation_samples=1) for e in members]
+    for (_, rho, it), (_, rho_single, it_single) in zip(group, singles):
+        assert abs(rho - rho_single) <= 1e-5 * rho_single
+        assert abs(it - it_single) <= 1
+    assert 8 in generator.graph_stats()["buckets"]

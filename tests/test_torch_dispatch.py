@@ -252,7 +252,8 @@ def test_kernel_library_builds_once_from_four_threads(monkeypatch, tmp_path):
         path.write_bytes(b"")
 
     def cdll_stub(path):
-        return types.SimpleNamespace(rb_sweep_f32=types.SimpleNamespace())
+        return types.SimpleNamespace(rb_sweep_f32=types.SimpleNamespace(),
+                                     rb_sweep_f32_batched=types.SimpleNamespace())
 
     monkeypatch.setattr(_build, "_library", None)
     monkeypatch.setattr(_build, "library_path", lambda: target)

@@ -506,7 +506,7 @@ def test_a_cached_generator_scores_as_the_eager_one(eager_graphs):
     """The bench trees and the champion, one by one and as a group of ω
     variants: ρ, iterations and every stage's executed count equal; one
     cached stage and power loop for every VM program, and one each per
-    lowered structure."""
+    lowered structure; the group adds its bucket's batched power loop."""
     problem, expressions = BENCH
     cached = TorchProgramGenerator(problem, dtype=torch.float32, iteration_limit=100,
                                    device="cpu")
@@ -533,7 +533,8 @@ def test_a_cached_generator_scores_as_the_eager_one(eager_graphs):
     group = cached.generate_and_evaluate_group(variants, evaluation_samples=1)
     expected = eager.generate_and_evaluate_group(variants, evaluation_samples=1)
     assert [g[1:] for g in group] == [e[1:] for e in expected]
-    assert cached.groups == 1 and len(cached.graph_cache) == size
+    assert cached.groups == cached.groups_batched == 1
+    assert len(cached.graph_cache) == size + 1 and len(cached._batched_interpreters) == 1
 
 
 def test_a_cached_generator_solves_helmholtz_as_the_eager_one(eager_graphs):

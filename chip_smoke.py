@@ -1015,7 +1015,8 @@ def profile_run(evaluate, table_name: str, host_ops: bool = True) -> dict:
     """evaluate() once to warm, once timed, once under torch.profiler: wall
     time, device busy time, idle share and device operations; the profiler's
     table by kernel goes to chiprun_out/<table_name>.  The idle share is
-    against the wall time without the profiler.  `host_ops=False` traces the
+    against the profiled run's own wall time, and the busy time is the union
+    of the device intervals.  `host_ops=False` traces the
     device alone: a whole evaluation of a 127³ cycle records ~150,000
     device operations, and their host-side events take the profiler minutes
     to post-process."""
@@ -1035,7 +1036,11 @@ def profile_run(evaluate, table_name: str, host_ops: bool = True) -> dict:
         synchronized()
         profiled_wall_s = time.perf_counter() - t0
     device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    busy_us, covered = 0.0, float("-inf")
+    for start, end in sorted((e.time_range.start, e.time_range.end) for e in device):
+        busy_us += max(0.0, end - max(start, covered))
+        covered = max(covered, end)
+    busy_ms = busy_us / 1e3
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, table_name), "w") as table:
@@ -1046,7 +1051,7 @@ def profile_run(evaluate, table_name: str, host_ops: bool = True) -> dict:
     top = sorted(by_name.items(), key=lambda item: -item[1])[:6]
     return {
         "wall_ms": wall_s * 1e3, "profiled_wall_ms": profiled_wall_s * 1e3,
-        "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / (wall_s * 1e3),
+        "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / (profiled_wall_s * 1e3),
         "device_ops": len(device),
         "top_device_ops": [{"name": name[:80], "ms": ms, "share": ms / busy_ms if busy_ms else None}
                            for name, ms in top],

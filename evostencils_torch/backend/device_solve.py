@@ -50,6 +50,7 @@ import torch
 from evostencils_torch import numpy_dtype
 from evostencils_torch.backend import graphs
 from evostencils_torch.ops.stencil_ops import l2_norm as _l2
+from evostencils_torch.utils import profiling
 
 # Eager calls of each body before its capture, as utils/timing.py's: they
 # fill the lowerings' lazily built device caches (dense coarse solves,
@@ -134,7 +135,7 @@ def _reactive_stage(loop, inner_cap, stall_ratio, stage_reduction=None):
 
     def run():
         loop.run("start")
-        rs0 = f32(loop.rn.item())
+        rs0 = f32(graphs.read(loop.rn))
         k, rn, prev = 0, rs0, f32(np.inf)
         while True:
             improving = k < 2 or rn < f32(stall_ratio) * prev
@@ -145,7 +146,7 @@ def _reactive_stage(loop, inner_cap, stall_ratio, stage_reduction=None):
                 return k, rs0, rn, prev
             loop.cycle.run_cycle()
             loop.run("post")
-            k, rn, prev = k + 1, f32(loop.rn.item()), rn
+            k, rn, prev = k + 1, f32(graphs.read(loop.rn)), rn
 
     return run
 
@@ -154,9 +155,10 @@ def _host_stage(loop, run, r_host):
     """One reactive stage on the float32 cast of the host residual
     `r_host`: (e in host float64, executed cycles, the stage's
     reduction)."""
-    _copy_host(loop.fs, (np.asarray(x, np.float32) for x in r_host))
-    k, rs0, rn, _ = run()
-    return _to_host64(loop.e), k, rn / rs0
+    with profiling.span("loop.restarts"):
+        _copy_host(loop.fs, (np.asarray(x, np.float32) for x in r_host))
+        k, rs0, rn, _ = run()
+        return _to_host64(loop.e), k, rn / rs0
 
 
 def build_staged_solver(
@@ -178,10 +180,10 @@ def build_staged_solver(
     `step(u, f) -> u` is one lowered f32 cycle on field tuples;
     `apply_a32` applies the finest operator in f32 (per-cycle residual
     norms, matching the reference solvers' per-iteration residual
-    prints); `host_residual(u64_np_tuple) -> r64_np_tuple` computes
-    f − A·u in true host f64.  Every stage restarts from the host f64
-    residual.  `loop`: a StagedLoop of the same step (captured or not),
-    else a new eager one."""
+    prints); `host_residual(u64_np_tuple, f64_np_tuple) -> r64_np_tuple`
+    computes f − A·u in true host f64 for the right-hand side f that solve
+    was given.  Every stage restarts from the host f64 residual.  `loop`: a
+    StagedLoop of the same step (captured or not), else a new eager one."""
     loop = loop or StagedLoop(step, apply_a32, shapes, device)
     run = _reactive_stage(loop, inner_cap, stall_ratio, stage_reduction)
 
@@ -190,25 +192,28 @@ def build_staged_solver(
             return _host_stage(loop, run, r_host)
 
     def solve(f32_rhs, f64_rhs_np):
-        r64 = tuple(np.asarray(x, np.float64) for x in f64_rhs_np)
-        u64 = tuple(np.zeros(s, np.float64) for s in shapes)
-        r0 = _host_l2(r64)
-        cycles = 0
-        stages = 0
-        rel = 1.0
-        while rel > target and stages < max_stages and cycles < 1000:
-            e, kk, _ = stage(r64)
-            if kk == 0:
-                break
-            u64 = tuple(u + x for u, x in zip(u64, e))
-            r64 = host_residual(u64)
-            cycles += kk
-            stages += 1
-            new_rel = _host_l2(r64) / r0
-            if new_rel >= rel:
-                break  # restart no longer improves — true floor reached
-            rel = new_rel
-        return cycles, rel, stages
+        with profiling.span("solve", root=True):
+            f64 = tuple(np.asarray(x, np.float64) for x in f64_rhs_np)
+            r64 = f64
+            u64 = tuple(np.zeros(s, np.float64) for s in shapes)
+            r0 = _host_l2(r64)
+            cycles = 0
+            stages = 0
+            rel = 1.0
+            while rel > target and stages < max_stages and cycles < 1000:
+                e, kk, _ = stage(r64)
+                if kk == 0:
+                    break
+                u64 = tuple(u + x for u, x in zip(u64, e))
+                with profiling.span("solve.verdict"):
+                    r64 = host_residual(u64, f64)
+                    new_rel = _host_l2(r64) / r0
+                cycles += kk
+                stages += 1
+                if new_rel >= rel:
+                    break  # restart no longer improves — true floor reached
+                rel = new_rel
+            return cycles, rel, stages
 
     return solve, stage
 
@@ -221,21 +226,22 @@ def _device_restart_loop(loop, inner, target, max_stages, k0=None, next_k=None):
     `inner(k) -> executed`; with `next_k`, k is set from each stage's
     reduction.  One norm is read per stage.  Returns (cycles, stages); the
     iterate is `loop.u64`."""
-    loop.run("begin")
-    r0 = loop.rn64.item()
-    cycles, stages, k = 0, 0, k0
-    prev_rel = math.inf
-    rel = r0 / r0  # the residual of the zero guess is f
-    while rel > target and rel < prev_rel and stages < max_stages and cycles < 500:
-        executed = inner(k)
-        loop.run("restart")
-        new_rel = loop.rn64.item() / r0
-        if next_k is not None:
-            k = next_k(rel, new_rel, executed)
-        cycles += executed
-        stages += 1
-        prev_rel, rel = rel, new_rel
-    return cycles, stages
+    with profiling.span("loop.restarts"):
+        loop.run("begin")
+        r0 = graphs.read(loop.rn64)
+        cycles, stages, k = 0, 0, k0
+        prev_rel = math.inf
+        rel = r0 / r0  # the residual of the zero guess is f
+        while rel > target and rel < prev_rel and stages < max_stages and cycles < 500:
+            executed = inner(k)
+            loop.run("restart")
+            new_rel = graphs.read(loop.rn64) / r0
+            if next_k is not None:
+                k = next_k(rel, new_rel, executed)
+            cycles += executed
+            stages += 1
+            prev_rel, rel = rel, new_rel
+        return cycles, stages
 
 
 def build_fused_staged_solver(
@@ -267,13 +273,15 @@ def build_fused_staged_solver(
         return run_stage()[0]
 
     def solve(f32_rhs, f64_rhs_np):
-        with loop.lock:
-            _copy_host(loop.f64, f64_rhs_np)
+        with profiling.span("solve", root=True), loop.lock:
+            f64 = tuple(np.asarray(x, np.float64) for x in f64_rhs_np)
+            _copy_host(loop.f64, f64)
             cycles, stages = _device_restart_loop(loop, inner, target, max_stages)
-            u_host = _to_host64(loop.u64)
-            r_true = host_residual(u_host)
-            r0 = _host_l2(tuple(np.asarray(x, np.float64) for x in f64_rhs_np))
-            rel = _host_l2(r_true) / r0
+            with profiling.span("solve.verdict"):
+                u_host = _to_host64(loop.u64)
+                r_true = host_residual(u_host, f64)
+                r0 = _host_l2(f64)
+                rel = _host_l2(r_true) / r0
             # Host-restart polish when the device loop stopped short of the
             # target.
             while rel > target and stages < max_stages and cycles < 1000:
@@ -281,14 +289,15 @@ def build_fused_staged_solver(
                 if kk == 0:
                     break
                 u_host = tuple(u + x for u, x in zip(u_host, e))
-                r_true = host_residual(u_host)
+                with profiling.span("solve.verdict"):
+                    r_true = host_residual(u_host, f64)
+                    new_rel = _host_l2(r_true) / r0
                 cycles += kk
                 stages += 1
-                new_rel = _host_l2(r_true) / r0
                 if new_rel >= rel:
                     break
                 rel = new_rel
-        return cycles, rel, stages
+            return cycles, rel, stages
 
     return solve
 
@@ -382,27 +391,32 @@ def build_predicted_staged_solver(
         return k
 
     def solve(f32_rhs, f64_rhs_np):
-        with loop.lock:
-            _copy_host(loop.f64, f64_rhs_np)
+        with profiling.span("solve", root=True), loop.lock:
+            f64 = tuple(np.asarray(x, np.float64) for x in f64_rhs_np)
+            _copy_host(loop.f64, f64)
             cycles, stages = _device_restart_loop(
                 loop, inner, target, max_stages, k0=k_stage, next_k=next_k)
-            u_host = _to_host64(loop.u64)
-            r_true = host_residual(u_host)
-            r0 = _host_l2(tuple(np.asarray(x, np.float64) for x in f64_rhs_np))
-            rel = _host_l2(r_true) / r0
+            with profiling.span("solve.verdict"):
+                u_host = _to_host64(loop.u64)
+                r_true = host_residual(u_host, f64)
+                r0 = _host_l2(f64)
+                rel = _host_l2(r_true) / r0
             # Host-restart polish when the device loop stopped short.
             while rel > target and stages < max_stages + 4 and cycles < 1000:
-                _copy_host(loop.fs, (np.asarray(x, np.float32) for x in r_true))
-                inner(k_stage)
-                u_host = tuple(u + x for u, x in zip(u_host, _to_host64(loop.e)))
-                r_true = host_residual(u_host)
+                with profiling.span("loop.restarts"):
+                    _copy_host(loop.fs, (np.asarray(x, np.float32) for x in r_true))
+                    inner(k_stage)
+                    e = _to_host64(loop.e)
+                u_host = tuple(u + x for u, x in zip(u_host, e))
+                with profiling.span("solve.verdict"):
+                    r_true = host_residual(u_host, f64)
+                    new_rel = _host_l2(r_true) / r0
                 cycles += k_stage
                 stages += 1
-                new_rel = _host_l2(r_true) / r0
                 if new_rel >= rel:
                     break
                 rel = new_rel
-        return cycles, rel, stages
+            return cycles, rel, stages
 
     return solve
 
@@ -429,7 +443,8 @@ def staged_solver_for_expression(
     terminals); `omegas` optionally overrides relaxation factors via the
     ω-parameterized lowering (for gradient-tuned champions; it goes to the
     device once, as a static float32 tensor); `generator` (a
-    TorchProgramGenerator) provides the exact host-f64 residual.  With
+    TorchProgramGenerator) provides the exact host-f64 residual, against
+    the float64 right-hand side each solve is given.  With
     `rho` the predicted solver (and with `calibrate_floor` its floor probe,
     whose result is `solve.measured_floor`), else with `fused` the
     device-restart solver, else the host-restart one.  The device is the
@@ -461,8 +476,8 @@ def staged_solver_for_expression(
     shapes = tuple(x.shape for x in u0)
     f64_rhs = tuple(np.asarray(x, np.float64) for x in f0)
 
-    def host_residual(u64):
-        return tuple(generator._host_residual(operator, u64, f64_rhs))
+    def host_residual(u64, f64):
+        return tuple(generator._host_residual(operator, u64, f64))
 
     def apply_a64(u):
         return (lowering64 or lowering32).system_apply(operator, u)

@@ -93,6 +93,7 @@ from evostencils_torch.ops import krylov
 from evostencils_torch.ops import stencil_ops as sops
 from evostencils_torch.parallel.mesh import gather_state
 from evostencils_torch.stencils import periodic
+from evostencils_torch.utils import profiling
 
 # A power-iteration rate of exactly 0.0 is an f32 underflow of a superb
 # cycle's error norm — clamp to a finite, best-ordered value.
@@ -566,7 +567,7 @@ class TorchProgramGenerator:
         around the cycle VM's step when the expression translates, else
         around the IR-lowered step.  `omega_arg` is the VM Program or the
         relaxation factors as float32 (the reference's traced ω vector)."""
-        with self._build_lock:
+        with profiling.span("evaluate.build"), self._build_lock:
             vm, program = self._vm_program(expression)
             if program is not None:
                 self.vm_hits += 1
@@ -673,10 +674,10 @@ class TorchProgramGenerator:
             one residual norm read back per cycle.  best_u is a copy."""
             loop = self._loop(key + ("stage",), step, omega_arg, u0,
                               lambda cycle: StageLoop(cycle, residual_norm))
-            with loop.lock:
+            with profiling.span("loop.stage"), loop.lock:
                 loop.load(u0, rhs, omega_arg)
                 loop.run("start")
-                res0 = np_dt(loop.res.item())
+                res0 = np_dt(graphs.read(loop.res))
                 res, it, best_res, best_it = res0, 0, res0, 0
                 while (
                     it < cap
@@ -687,25 +688,25 @@ class TorchProgramGenerator:
                     and it - best_it < patience
                 ):
                     loop.step()
-                    res = np_dt(loop.res.item())
+                    res = np_dt(graphs.read(loop.res))
                     it += 1
                     if res < best_res:
                         best_it, best_res = it, res
-                return (np_dt(loop.best_res.item()), res0, int(loop.best_it.item()),
+                return (np_dt(graphs.read(loop.best_res)), res0, int(graphs.read(loop.best_it)),
                         tuple(x.clone() for x in loop.best_u), it)
 
         def power(e0, zf, omega_arg):
             """(rate, cycles): blocks until the per-cycle rate settles."""
             loop = self._loop(key + ("power",), step, omega_arg, e0,
                               lambda cycle: PowerLoop(cycle, norm))
-            with loop.lock:
+            with profiling.span("loop.power"), loop.lock:
                 loop.load(e0, zf, omega_arg)
                 loop.block()
-                rate = np_dt(loop.rate.item())
+                rate = np_dt(graphs.read(loop.rate))
                 prev_rate, k = np_dt(0.0), 1
                 while going(k, prev_rate, rate):
                     loop.block()
-                    prev_rate, rate, k = rate, np_dt(loop.rate.item()), k + 1
+                    prev_rate, rate, k = rate, np_dt(graphs.read(loop.rate)), k + 1
             return rate, k * PowerLoop.BLOCK_LEN
 
         def batched_power(e0, zf, omega_arg):
@@ -719,15 +720,15 @@ class TorchProgramGenerator:
             members = e0[0].shape[0]
             loop = self._loop(key + ("power", members), step, omega_arg, e0,
                               lambda cycle: BatchedPowerLoop(cycle, member_norms), members)
-            with loop.lock:
+            with profiling.span("loop.power"), loop.lock:
                 loop.load(e0, zf, omega_arg)
                 loop.block()
-                rate = loop.rate.cpu().numpy().astype(np_dt)
+                rate = graphs.read(loop.rate).astype(np_dt)
                 prev_rate, k = np.zeros_like(rate), np.ones(members, dtype=np.int64)
                 active = going(k, prev_rate, rate)
                 while active.any():
                     loop.block()
-                    new_rate = loop.rate.cpu().numpy().astype(np_dt)
+                    new_rate = graphs.read(loop.rate).astype(np_dt)
                     prev_rate = np.where(active, rate, prev_rate)
                     rate = np.where(active, new_rate, rate)
                     k += active
@@ -771,7 +772,8 @@ class TorchProgramGenerator:
 
     def _median_time(self, solve, args, evaluation_samples) -> float:
         """Median seconds of solve(*args) over `evaluation_samples` runs."""
-        times = sorted(self._timed(solve, *args) for _ in range(max(1, evaluation_samples)))
+        with profiling.span("evaluate.timing"):
+            times = sorted(self._timed(solve, *args) for _ in range(max(1, evaluation_samples)))
         self.run_time_total += sum(times)
         return times[len(times) // 2]
 
@@ -797,16 +799,17 @@ class TorchProgramGenerator:
         """(u0, f, e0, zf) on the device at the expression's level: the
         problem's initial state, the power iteration's seeded random error
         and its zero right-hand side."""
-        u0_host, f_host = self.problem.initial_state(
-            self.dtype, level=self._expression_level(expression),
-            rhs_seed=self.rhs_seed, init_seed=self.init_seed,
-        )
-        rng = np.random.default_rng(self._probe_error_seed())
-        e0 = self._to_device(
-            rng.standard_normal(x.shape).astype(self._np_dtype) for x in u0_host
-        )
-        zf = self._to_device(np.zeros(x.shape, self._np_dtype) for x in u0_host)
-        return self._to_device(u0_host), self._to_device(f_host), e0, zf
+        with profiling.span("evaluate.probe_state"):
+            u0_host, f_host = self.problem.initial_state(
+                self.dtype, level=self._expression_level(expression),
+                rhs_seed=self.rhs_seed, init_seed=self.init_seed,
+            )
+            rng = np.random.default_rng(self._probe_error_seed())
+            e0 = self._to_device(
+                rng.standard_normal(x.shape).astype(self._np_dtype) for x in u0_host
+            )
+            zf = self._to_device(np.zeros(x.shape, self._np_dtype) for x in u0_host)
+            return self._to_device(u0_host), self._to_device(f_host), e0, zf
 
     def _power_verdict(self, rate, infinity):
         """(ρ, iterations, result) from a power-iteration rate.  `result`
@@ -847,13 +850,14 @@ class TorchProgramGenerator:
         global_variable_values=None,
     ):
         """Returns (time_to_convergence_ms, convergence_factor, iterations)."""
-        if global_variable_values:
-            self._apply_parameter_values(global_variable_values)
-            if "k" in global_variable_values and getattr(self.problem, "outer_solver", None):
-                # The Helmholtz protocol: every individual across the
-                # k-ladder k, 2k, 4k.
-                return self._evaluate_k_ladder(expression, infinity, evaluation_samples)
-        return self._generate_and_evaluate_measured(expression, infinity, evaluation_samples)
+        with profiling.span("evaluate", root=True):
+            if global_variable_values:
+                self._apply_parameter_values(global_variable_values)
+                if "k" in global_variable_values and getattr(self.problem, "outer_solver", None):
+                    # The Helmholtz protocol: every individual across the
+                    # k-ladder k, 2k, 4k.
+                    return self._evaluate_k_ladder(expression, infinity, evaluation_samples)
+            return self._generate_and_evaluate_measured(expression, infinity, evaluation_samples)
 
     def _evaluate_k_ladder(self, expression, infinity, evaluation_samples):
         """k, 2k, 4k with the reference's combination rule: the mean over
@@ -941,12 +945,13 @@ class TorchProgramGenerator:
                 if not linear or log_reduction <= log_eps or not (stalled or target_hit):
                     break
                 try:
-                    r64 = self._host_residual(
-                        operator, self._to_host(best_u, operator.grid),
-                        self._to_host(rhs, operator.grid))
+                    with profiling.span("host_residual"):
+                        r64 = self._host_residual(
+                            operator, self._to_host(best_u, operator.grid),
+                            self._to_host(rhs, operator.grid))
+                        rhs = self._to_device(r64)
                 except NotImplementedError:
                     break
-                rhs = self._to_device(r64)
         except _DEVICE_ERRORS + _RANK_ERRORS:
             raise
         except (RuntimeError, ValueError, NotImplementedError, FloatingPointError):
@@ -1006,7 +1011,7 @@ class TorchProgramGenerator:
             return lowering.system_apply(outer_operator, state)
 
         def solve(f, omega_arg):
-            res0 = float(sops.l2_norm(f, slab))
+            res0 = float(graphs.read(sops.l2_norm(f, slab)))
             loop = self._loop(key + ("bicgstab",), step, omega_arg, f,
                               lambda cycle: krylov.BicgstabLoop(apply_a, cycle, f, slab))
             with loop.lock:
@@ -1022,7 +1027,7 @@ class TorchProgramGenerator:
         VM when the cycle translates, else lowered from the IR.
         `probe_iterations` gives the short-capped variant of the
         prescreen, which counts as neither VM hit nor miss."""
-        with self._build_lock:
+        with profiling.span("evaluate.build"), self._build_lock:
             tag = "outer" if probe_iterations is None else f"outer_probe_{probe_iterations}"
             max_iterations = (
                 self.problem.outer_solver["max_iterations"]
@@ -1067,10 +1072,12 @@ class TorchProgramGenerator:
             spec = self.problem.outer_solver
             true_target = spec["target_reduction"]
             max_iterations = spec["max_iterations"]
-            u0_host, f_host = self.problem.initial_state(
-                self.dtype, level=self._expression_level(expression), rhs_seed=self.rhs_seed)
-            f64 = tuple(np.asarray(x, self._np_acc) for x in f_host)
-            res0_true = _host_norm(f64)
+            with profiling.span("evaluate.probe_state"):
+                u0_host, f_host = self.problem.initial_state(
+                    self.dtype, level=self._expression_level(expression),
+                    rhs_seed=self.rhs_seed)
+                f64 = tuple(np.asarray(x, self._np_acc) for x in f_host)
+                res0_true = _host_norm(f64)
             if res0_true <= 0.0:
                 return infinity, infinity, infinity
 
@@ -1122,8 +1129,9 @@ class TorchProgramGenerator:
             rel = 1.0
             if probe_seed is not None:
                 x_probe, probe_operator, p_it_seed = probe_seed
-                r_probe = self._host_residual(probe_operator, x_probe, f64)
-                seeded_rel = _host_norm(r_probe) / res0_true
+                with profiling.span("host_residual"):
+                    r_probe = self._host_residual(probe_operator, x_probe, f64)
+                    seeded_rel = _host_norm(r_probe) / res0_true
                 if math.isfinite(seeded_rel) and seeded_rel < rel:
                     x_total, rhs_host, total_it, rel = x_probe, r_probe, p_it_seed, seeded_rel
 
@@ -1136,8 +1144,9 @@ class TorchProgramGenerator:
                     rng0.standard_normal(np.asarray(x).shape).astype(self._np_acc)
                     for x in u0_host
                 )
-                r0 = tuple(self._host_residual(outer_operator, x_rand, f64))
-                res0_init = _host_norm(r0)
+                with profiling.span("host_residual"):
+                    r0 = tuple(self._host_residual(outer_operator, x_rand, f64))
+                    res0_init = _host_norm(r0)
                 if res0_init > 0.0 and math.isfinite(res0_init):
                     x_total, rhs_host, res0_true, total_it, rel = x_rand, r0, res0_init, 0, 1.0
 
@@ -1156,10 +1165,11 @@ class TorchProgramGenerator:
                     # individuals), unlike the host rel, which clamps at 1.
                     stage1_rho = (res / res0s) ** (1.0 / it) if res > 0.0 else infinity
                 total_it += it
-                x_total = tuple(
-                    a + b for a, b in zip(x_total, self._to_host(x, outer_operator.grid)))
-                r_host = self._host_residual(outer_operator, x_total, f64)
-                new_rel = _host_norm(r_host) / res0_true
+                with profiling.span("host_residual"):
+                    x_total = tuple(
+                        a + b for a, b in zip(x_total, self._to_host(x, outer_operator.grid)))
+                    r_host = self._host_residual(outer_operator, x_total, f64)
+                    new_rel = _host_norm(r_host) / res0_true
                 if new_rel <= true_target:
                     rel = new_rel
                     break

@@ -60,6 +60,7 @@ from evostencils_torch import CudaGraphError
 from evostencils_torch.backend.vm import Program
 from evostencils_torch.ops import rb_sweep
 from evostencils_torch.ops import stencil_ops as sops
+from evostencils_torch.utils import profiling
 
 # One capture at a time in the process: the warm-ups, the capture stream
 # and the allocator's pools are shared.
@@ -76,10 +77,11 @@ DEFAULT_MAX_BYTES = 8 << 30
 
 class Counters:
     """What the process's graphs did since the last reset(): captures,
-    failed captures, replays, seconds spent warming up and capturing, and
-    entries evicted from a GraphCache."""
+    failed captures, replays, seconds spent warming up and capturing,
+    entries evicted from a GraphCache, and the measurement loops' reads of
+    device values to the host (`read`)."""
 
-    FIELDS = ("captures", "capture_failures", "replays", "capture_s", "evictions")
+    FIELDS = ("captures", "capture_failures", "replays", "capture_s", "evictions", "host_reads")
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -140,10 +142,29 @@ class Graph:
         self.launches = launches
 
     def replay(self) -> None:
+        """While a profiler runs, the host's ns of the replay go to the
+        timed counter `replay` (utils/profiling.py)."""
+        t0 = time.time_ns() if profiling.recording() else None
         self._graph.replay()
+        if t0 is not None:
+            profiling.add_time("replay", time.time_ns() - t0)
         counters.add("replays")
         if self.launches:
             rb_sweep.count_replay(self.launches)
+
+
+def read(t: torch.Tensor):
+    """A loop's read of device values to the host: a 0-d tensor as a Python
+    scalar, anything else as a numpy array.  The host waits for every
+    launch before it, so the device idles until the host launches again.
+    Counted in `counters.host_reads`; while a profiler runs, the host's
+    wait goes to the timed counter `read` (utils/profiling.py)."""
+    counters.add("host_reads")
+    t0 = time.time_ns() if profiling.recording() else None
+    value = t.item() if t.dim() == 0 else t.cpu().numpy()
+    if t0 is not None:
+        profiling.add_time("read", time.time_ns() - t0)
+    return value
 
 
 # One capture stream per device, as torch.cuda.graph keeps one.

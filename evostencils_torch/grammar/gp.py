@@ -21,6 +21,7 @@ import re
 from typing import Callable, Dict, List, Optional, Sequence
 
 from evostencils_torch.grammar.typing import Type
+from evostencils_torch.utils import profiling
 
 
 class Primitive:
@@ -171,7 +172,8 @@ def compile_tree(tree: Tree, pset: PrimitiveSet):
         args = [evaluate() for _ in range(node.arity)]
         return node.fn(*args)
 
-    result = evaluate()
+    with profiling.span("compile", root=True):
+        result = evaluate()
     if pos[0] != len(tree):
         raise ValueError("Malformed tree: trailing nodes")
     return result

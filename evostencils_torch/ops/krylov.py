@@ -36,6 +36,7 @@ import torch
 from evostencils_torch.backend import graphs
 from evostencils_torch.ops.stencil_ops import (
     dot, per_member, tree_add, tree_scale, tree_sub, zeros_like_state)
+from evostencils_torch.utils import profiling
 
 State = Sequence[torch.Tensor]
 _EPS = 1e-30
@@ -132,8 +133,8 @@ def _residual_norm(r: State, slab=None) -> torch.Tensor:
 def _host_scalar(norm: torch.Tensor):
     """A norm read back to the host as a numpy scalar of its dtype, so the
     stopping test rounds as the reference's does on the device (float32
-    for float32 and complex64 states)."""
-    return (np.float64 if norm.dtype == torch.float64 else np.float32)(norm.item())
+    for float32 and complex64 states); counted by graphs.read."""
+    return (np.float64 if norm.dtype == torch.float64 else np.float32)(graphs.read(norm))
 
 
 class _ClosureCycle:
@@ -251,22 +252,23 @@ class BicgstabLoop(graphs.Loop):
         `while_loop` condition does; on a breakdown (a NaN in the
         recurrence) it returns the best iterate so far, so the restarted
         outer solve can go on from the last good state."""
-        for d, f in zip(self.rhs, rhs):
-            d.copy_(f)
-        self.run("start")
-        res0 = _host_scalar(self.res)
-        threshold = type(res0)(target_reduction) * res0
-        res = best_res = res0
-        it = 0
-        while it < max_iterations and res > threshold and math.isfinite(res):
-            self.iteration()
-            res = _host_scalar(self.res)
-            it += 1
-            if math.isfinite(res) and res < best_res:
-                best_res = res
-        x = self.x if math.isfinite(res) and res <= best_res else self.best_x
-        return (tuple(t.clone() for t in x), it,
-                float(min(res if math.isfinite(res) else best_res, best_res)))
+        with profiling.span("loop.bicgstab"):
+            for d, f in zip(self.rhs, rhs):
+                d.copy_(f)
+            self.run("start")
+            res0 = _host_scalar(self.res)
+            threshold = type(res0)(target_reduction) * res0
+            res = best_res = res0
+            it = 0
+            while it < max_iterations and res > threshold and math.isfinite(res):
+                self.iteration()
+                res = _host_scalar(self.res)
+                it += 1
+                if math.isfinite(res) and res < best_res:
+                    best_res = res
+            x = self.x if math.isfinite(res) and res <= best_res else self.best_x
+            return (tuple(t.clone() for t in x), it,
+                    float(min(res if math.isfinite(res) else best_res, best_res)))
 
 
 def preconditioned_bicgstab(

@@ -161,6 +161,47 @@ def test_reactive_and_fused_solvers_reach_target(sides, fused):
     assert abs(tc - jc) <= 3 and abs(ts - js) <= 1, outcomes
 
 
+class _Judged:
+    """The port's generator as a staged solver sees it, keeping the iterate
+    and the right-hand side of the last verdict."""
+
+    def __init__(self, generator):
+        self.generator = generator
+        self.last = None
+
+    def _host_residual(self, operator, u_fields, f_fields):
+        self.last = (u_fields, f_fields)
+        return self.generator._host_residual(operator, u_fields, f_fields)
+
+
+@pytest.mark.parametrize("mode", ["reactive", "fused", "predicted"])
+def test_one_solver_judges_each_right_hand_side_against_itself(sides, mode):
+    """One solver, two right-hand sides in turn: each solve's verdict reads
+    the float64 right-hand side that solve was given, and its final iterate
+    meets the target against it in float64."""
+    port = sides[1]
+    expression = port.v_cycle(2, 2)
+    kwargs = {"reactive": {}, "fused": {"fused": True},
+              "predicted": {"rho": port.rho(expression)}}[mode]
+    judged = _Judged(port.generator)
+    operator = port.side.terminals[0].operator
+    solve, f64_rhs = device_solve.staged_solver_for_expression(
+        port.lowering32, expression, operator, port.problem, judged, target=TARGET,
+        lowering64=port.lowering64, **kwargs)
+    rng = np.random.default_rng(11)
+    other = tuple(rng.standard_normal(np.shape(x)).astype(np.float32).astype(np.float64)
+                  for x in f64_rhs)
+    for f64 in (f64_rhs, other, f64_rhs):
+        f32 = tuple(torch.from_numpy(np.asarray(x, np.float32)) for x in f64)
+        _, rel, _ = solve(f32, f64)
+        u, judged_f = judged.last
+        assert all(np.array_equal(a, b) for a, b in zip(judged_f, f64))
+        r = port.generator._host_residual(operator, u, f64)
+        true_rel = (np.sqrt(sum(np.sum(x ** 2) for x in r))
+                    / np.sqrt(sum(np.sum(np.asarray(x) ** 2) for x in f64)))
+        assert true_rel <= TARGET and rel == pytest.approx(true_rel, rel=1e-12), (mode, rel)
+
+
 def test_stored_omegas_take_the_parameterized_lowering():
     """An ω vector goes through `lower_parameterized` as one float32 device
     tensor; with the cycle's own factors it solves as the plain lowering."""

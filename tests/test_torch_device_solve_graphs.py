@@ -203,8 +203,11 @@ class Case:
     def apply_a64(self, u):
         return self.lowering64.system_apply(self.operator, u)
 
-    def host_residual(self, u64):
-        return tuple(self.generator._host_residual(self.operator, u64, self.f64_rhs))
+    def host_residual(self, u64, f64=None):
+        """f − A·u in host float64; f is the case's right-hand side unless
+        given (the solvers pass the one each solve was given)."""
+        f64 = self.f64_rhs if f64 is None else f64
+        return tuple(self.generator._host_residual(self.operator, u64, f64))
 
     def loop(self):
         return device_solve.StagedLoop(self.step, self.apply_a32, self.shapes, "cpu",

@@ -247,11 +247,6 @@ def test_evaluation_report_and_bandwidth(tmp_path):
                            "vm_isa_recompiles", "vm_hit_rate"}
     assert report["vm_hits"] + report["vm_misses"] == 1 and report["solver_cache_entries"] == 1
     expression = reference_cycles.generate_v_cycle(side.terminals, problem.rhs(), 2, 1)
-    utilization = profiling.bandwidth_utilization(expression, 1e-3)
-    traffic = roofline.PerformanceEvaluator().estimate_traffic(expression)
-    assert utilization["modeled_bytes"] == int(traffic)
-    assert utilization["utilization_pct_upper_bound"] == round(
-        100.0 * traffic / 1e-3 / roofline.H100_HBM_BANDWIDTH, 1)
     with profiling.trace(str(tmp_path / "trace"), device="cpu") as traced:
         generator.generate_and_evaluate(expression, evaluation_samples=1)
     assert os.path.getsize(traced.path) > 0

@@ -28,6 +28,7 @@ over its own elements.  A mesh slab takes no members.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -172,18 +173,87 @@ def apply_stencil(u: torch.Tensor, stencil, slab=None) -> torch.Tensor:
     raise TypeError(f"Not a stencil: {type(stencil)}")
 
 
+def _in_range(offset, shape):
+    """(points, neighbours): the slices of the points whose neighbour at
+    `offset` lies inside the grid, and of those neighbours (empty where
+    |offset| reaches past the grid)."""
+    points = tuple(slice(min(n, max(0, -o)), max(0, n - max(0, o)))
+                   for o, n in zip(offset, shape))
+    neighbours = tuple(slice(min(n, max(0, o)), max(0, n + min(0, o)))
+                       for o, n in zip(offset, shape))
+    return points, neighbours
+
+
+# Bytes of the leading rows the host applies a constant stencil to at once:
+# a block stays in the core's cache through every entry and the residual's
+# subtraction, where whole grids (2 MB at 511², float64) go out to memory
+# and back with each pass.
+_HOST_BLOCK_BYTES = 1 << 18
+
+
+def _zero_outside(block, kept) -> None:
+    """Zeros every point of `block` outside the slices `kept`."""
+    for axis, inside in enumerate(kept):
+        before = (slice(None),) * axis
+        block[before + (slice(0, inside.start),)] = 0
+        block[before + (slice(inside.stop, None),)] = 0
+
+
+def _host_constant_stencil(u: np.ndarray, stencil: constant.Stencil, f=None) -> np.ndarray:
+    """A·u, or f − A·u with `f`, into a fresh array in u's dtype, a block
+    of leading rows at a time.
+
+    No padded copy: each entry multiplies the in-range neighbours into one
+    scratch buffer and adds them into the matching points, in the stencil's
+    order, a point's first product onto +0.0.  That is the zero-padded sum
+    to the bit: a neighbour outside the grid would add value·0.0, which
+    changes no bit of a sum started from +0.0.  The blocks change no sum:
+    a point's entries are added in the same order in any block."""
+    out = np.empty_like(u)
+    rows = max(1, _HOST_BLOCK_BYTES // max(1, u[:1].nbytes))
+    scratch = np.empty(min(rows, len(u)) * u[:1].size, u.dtype)
+    entries = [(offset[0], value) + _in_range(offset, u.shape)
+               for offset, value in stencil.entries]
+    for r0 in range(0, len(u), rows):
+        r1 = min(len(u), r0 + rows)
+        block = out[r0:r1]
+        started = False
+        for shift, value, points, neighbours in entries:
+            lo, hi = max(points[0].start, r0), min(points[0].stop, r1)
+            if lo >= hi:
+                continue
+            kept = (slice(lo - r0, hi - r0),) + points[1:]
+            target = block[kept]
+            if target.size == 0:
+                continue
+            source = u[(slice(lo + shift, hi + shift),) + neighbours[1:]]
+            if not started:
+                _zero_outside(block, kept)
+                np.multiply(value, source, out=target)
+                np.add(target, 0.0, out=target)
+                started = True
+                continue
+            product = scratch[:target.size].reshape(target.shape)
+            np.multiply(value, source, out=product)
+            np.add(target, product, out=target)
+        if not started:
+            block.fill(0)
+        if f is not None:
+            np.subtract(f[r0:r1], block, out=block)
+    return out
+
+
 def numpy_apply_constant_stencil(u: np.ndarray, stencil: constant.Stencil) -> np.ndarray:
     """Host-side stencil application in the array's own dtype (float64 for
-    the exact residuals between restarted f32 stages)."""
-    if stencil.number_of_entries == 0:
-        return np.zeros_like(u)
-    reach = stencil.max_reach()
-    padded = np.pad(u, [(r, r) for r in reach])
-    out = np.zeros_like(u)
-    for offset, value in stencil.entries:
-        index = tuple(slice(r + o, r + o + n) for r, o, n in zip(reach, offset, u.shape))
-        out += value * padded[index]
-    return out
+    the exact residuals between restarted f32 stages), into a fresh array."""
+    return _host_constant_stencil(u, stencil)
+
+
+def numpy_constant_residual(f: np.ndarray, u: np.ndarray, stencil: constant.Stencil) -> np.ndarray:
+    """f − A·u on the host in u's dtype, into a fresh array: the bits of
+    `f - numpy_apply_constant_stencil(u, stencil)`, with the subtraction
+    done block by block while the block is in cache."""
+    return _host_constant_stencil(u, stencil, f)
 
 
 def numpy_apply_variable_stencil(u: np.ndarray, offsets, planes) -> np.ndarray:
@@ -196,6 +266,13 @@ def numpy_apply_variable_stencil(u: np.ndarray, offsets, planes) -> np.ndarray:
         index = tuple(slice(r + o, r + o + n) for r, o, n in zip(reach, offset, u.shape))
         out += np.asarray(plane, dtype=u.dtype) * padded[index]
     return out
+
+
+def numpy_l2_norm(state) -> float:
+    """Euclidean norm of a host (numpy) state: one pass a field, Σ x̄·x as a
+    dot product of the flattened field with itself (real for a complex
+    field)."""
+    return math.sqrt(sum(float(np.vdot(x, x).real) for x in state))
 
 
 def _all_reduced(acc: torch.Tensor, slab) -> torch.Tensor:

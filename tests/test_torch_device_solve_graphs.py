@@ -32,7 +32,7 @@ from evostencils_torch.backend import device_solve, graphs
 from evostencils_torch.backend.evaluation import TorchProgramGenerator
 from evostencils_torch.backend.lowering import CycleLowering
 from evostencils_torch.ir import reference_cycles
-from evostencils_torch.ops.stencil_ops import l2_norm
+from evostencils_torch.ops.stencil_ops import l2_norm, numpy_l2_norm
 from evostencils_torch.problems.poisson import poisson_2d
 from evostencils_torch.utils.champions import apply_stored_omegas, parse_champion_file
 import test_torch_device_solve
@@ -67,10 +67,6 @@ def _parent_stage_loop(step, apply_a32, shapes, inner_cap, stall_ratio, stage_re
     return run
 
 
-def _host_l2(state):
-    return float(np.sqrt(sum(np.sum(np.abs(np.asarray(x)) ** 2) for x in state)))
-
-
 def _f32(host_state):
     return tuple(torch.from_numpy(np.asarray(x, np.float32)) for x in host_state)
 
@@ -94,7 +90,7 @@ def _parent_solver(step, apply_a32, apply_a64, host_residual, shapes, f64_rhs, m
             r_true = host_residual(u_host)
             cycles += kk
             stages += 1
-            new_rel = _host_l2(r_true) / r0
+            new_rel = numpy_l2_norm(r_true) / r0
             if new_rel >= rel:
                 break
             rel = new_rel
@@ -105,7 +101,7 @@ def _parent_solver(step, apply_a32, apply_a64, host_residual, shapes, f64_rhs, m
 
         def solve():
             stage = lambda fs: run(fs, np.float32(l2_norm(fs).item()))[:2]  # noqa: E731
-            return polish(tuple(np.zeros(s) for s in shapes), f64_rhs, _host_l2(f64_rhs), 1.0,
+            return polish(tuple(np.zeros(s) for s in shapes), f64_rhs, numpy_l2_norm(f64_rhs), 1.0,
                           0, 0, stage, 10)
         return solve, None
 
@@ -158,8 +154,8 @@ def _parent_solver(step, apply_a32, apply_a64, host_residual, shapes, f64_rhs, m
             prev_rel, rel = rel, new_rel
         u_host = _host64(u64)
         r_true = host_residual(u_host)
-        r0_host = _host_l2(f64_rhs)
-        return polish(u_host, r_true, r0_host, _host_l2(r_true) / r0_host, cycles, stages,
+        r0_host = numpy_l2_norm(f64_rhs)
+        return polish(u_host, r_true, r0_host, numpy_l2_norm(r_true) / r0_host, cycles, stages,
                       polish_stage, polish_cap)
 
     return solve, floor

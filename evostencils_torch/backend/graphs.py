@@ -90,8 +90,7 @@ class Counters:
     def reset(self) -> None:
         with self._lock:
             for name in self.FIELDS:
-                setattr(self, name, 0)
-            self.capture_s = 0.0
+                setattr(self, name, 0.0 if name.endswith("_s") else 0)
 
     def add(self, name: str, value=1) -> None:
         with self._lock:

@@ -19,6 +19,13 @@ a different program, so the unit of parallel work is one evaluation:
   rows instead, the reference's production topology: the `sp` ranks of a
   row evaluate the row's share together, one individual at a time, each
   individual split by rows over them.
+
+`MultiHostDispatcher.map` records the spans `dispatch.map` (the whole
+call), `dispatch.local` (this process's share through `inner`) and
+`dispatch.gather` (the rows, the `all_gather` and their unpacking) while a
+profiler runs (utils/profiling.span), and always adds to `counters`: maps,
+the items this process evaluated and the nanoseconds of its share and of
+its gather, which includes the wait for the slowest process.
 """
 
 from __future__ import annotations
@@ -26,11 +33,27 @@ from __future__ import annotations
 import concurrent.futures
 import os
 import threading
+import time
 from typing import Callable, List, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from evostencils_torch.backend import graphs
+from evostencils_torch.utils import profiling
+
+
+class Counters(graphs.Counters):
+    """What this process's MultiHostDispatcher maps did since the last
+    reset(): maps, the items it evaluated (`items_local`), and the ns spent
+    on them (`local_ns`) and on gathering every process's results
+    (`gather_ns`)."""
+
+    FIELDS = ("maps", "items_local", "local_ns", "gather_ns")
+
+
+counters = Counters()
 
 
 class ThreadPoolDispatcher:
@@ -139,16 +162,30 @@ class MultiHostDispatcher:
         return mine
 
     def map(self, fn: Callable, items: Sequence) -> List:
-        mine = [
-            (i, item)
-            for i, item in enumerate(items)
-            if i % self.process_count == self.process_index
-        ]
-        local_results = self.inner.map(fn, [item for _, item in mine])
-        if self.process_count == 1:
-            return local_results
+        with profiling.span("dispatch.map"):
+            mine = [
+                (i, item)
+                for i, item in enumerate(items)
+                if i % self.process_count == self.process_index
+            ]
+            t0 = time.perf_counter_ns()
+            with profiling.span("dispatch.local"):
+                local_results = self.inner.map(fn, [item for _, item in mine])
+            t1 = time.perf_counter_ns()
+            counters.add("maps")
+            counters.add("items_local", len(mine))
+            counters.add("local_ns", t1 - t0)
+            if self.process_count == 1:
+                return local_results
+            with profiling.span("dispatch.gather"):
+                results = self._gather(len(items), mine, local_results)
+            counters.add("gather_ns", time.perf_counter_ns() - t1)
+            return results
+
+    def _gather(self, count: int, mine: list, local_results: list) -> List:
+        """Every process's results, in the order of the items."""
         width = self.MAX_FITNESS_WIDTH
-        rows = np.full((len(items), width + 2), np.nan)
+        rows = np.full((count, width + 2), np.nan)
         for (i, _), fit in zip(mine, local_results):
             fit = tuple(fit)
             rows[i, 0] = i
@@ -157,7 +194,7 @@ class MultiHostDispatcher:
         local = torch.from_numpy(rows)
         gathered = [torch.empty_like(local) for _ in range(self.process_count)]
         dist.all_gather(gathered, local, group=self.group)
-        results: List = [None] * len(items)
+        results: List = [None] * count
         for process_rows in gathered:
             for row in process_rows.numpy():
                 if not np.isnan(row[0]):

@@ -17,12 +17,18 @@ that concurrent evaluation needs, on the CPU.
   mixed-arity round trip and 6 ω variants, each process checking the
   gathered list against its own serial evaluation; and two processes of
   `torch_optimize.py --multihost --cpu` breed the same populations.
+* Over two gloo processes `MultiHostDispatcher` counts its maps, each
+  process's items and the ns of its share and its gather exactly, returns
+  `SerialDispatcher`'s results bit for bit, records `dispatch.map` around
+  `dispatch.local` and `dispatch.gather` under torch.profiler and records
+  no span without one.
 * The kernel library builds once from four threads, and launch counts
   from many threads are not lost (no kernel needed for either).
 
 Subprocesses get PYTHONPATH set to this checkout and their own timeouts.
 """
 
+import json
 import os
 import random
 import socket
@@ -206,6 +212,80 @@ def test_multihost_dispatcher_two_gloo_processes(tmp_path):
     for rank, (p, out) in enumerate(zip(procs, outputs)):
         assert p.returncode == 0, f"process {rank} failed:\n{out[-3000:]}"
         assert f"MULTIHOST_OK {rank}" in out
+
+
+_COUNTING_WORKER = """
+import json, sys
+import torch.distributed as dist
+from torch.profiler import ProfilerActivity, profile
+
+rank, world, address = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+dist.init_process_group("gloo", init_method=f"tcp://{address}", rank=rank, world_size=world)
+from evostencils_torch.parallel import dispatch
+from evostencils_torch.utils import profiling
+
+def fitness(x):
+    return (x / 3.0, x ** 0.5, 1.0 / (x + 0.7)) if x % 2 else (x * 1.1,)
+
+d = dispatch.MultiHostDispatcher(inner=dispatch.SerialDispatcher())
+dispatch.counters.reset()
+profiling.take()
+untraced = [d.map(fitness, list(range(11))) for _ in range(2)]
+quiet = profiling.take().spans
+with profile(activities=[ProfilerActivity.CPU]):
+    traced = d.map(fitness, list(range(5)))
+spans = profiling.take().spans
+print("DISPATCH " + json.dumps({
+    "counters": dispatch.counters.as_dict(), "untraced": untraced, "traced": traced,
+    "serial": [dispatch.SerialDispatcher().map(fitness, list(range(n))) for n in (11, 5)],
+    "quiet": [s.name for s in quiet], "spans": [[s.name, s.parent] for s in spans]}),
+    flush=True)
+dist.destroy_process_group()
+"""
+
+
+@pytest.fixture(scope="module")
+def counted_maps(tmp_path_factory):
+    """What each of two gloo processes reported after two untraced maps of
+    11 items and one traced map of 5."""
+    worker = tmp_path_factory.mktemp("counting") / "worker.py"
+    worker.write_text(_COUNTING_WORKER)
+    address = f"127.0.0.1:{_free_port()}"
+    procs, outputs = _run_processes(
+        [([sys.executable, str(worker), str(rank), "2", address], _subprocess_env())
+         for rank in range(2)], timeout=120)
+    reports = []
+    for rank, (p, out) in enumerate(zip(procs, outputs)):
+        assert p.returncode == 0, f"process {rank} failed:\n{out[-3000:]}"
+        line = next(l for l in out.splitlines() if l.startswith("DISPATCH "))
+        reports.append(json.loads(line[len("DISPATCH "):]))
+    return reports
+
+
+def test_multihost_dispatcher_counts_its_maps_items_and_phases(counted_maps):
+    # Rank 0 takes items 0, 2, 4, ...: 6 of 11 and 3 of 5; rank 1 the rest.
+    for rank, items in enumerate((6 + 6 + 3, 5 + 5 + 2)):
+        counters = counted_maps[rank]["counters"]
+        assert (counters["maps"], counters["items_local"]) == (3, items), counters
+        assert counters["local_ns"] > 0 and counters["gather_ns"] > 0, counters
+
+
+def test_multihost_dispatcher_returns_the_serial_results_bit_for_bit(counted_maps):
+    for report in counted_maps:
+        serial_11, serial_5 = report["serial"]
+        assert report["untraced"] == [serial_11, serial_11]
+        assert report["traced"] == serial_5
+
+
+def test_multihost_dispatcher_spans_nest_under_a_profiler(counted_maps):
+    for report in counted_maps:
+        assert report["spans"] == [["dispatch.map", -1], ["dispatch.local", 0],
+                                   ["dispatch.gather", 0]]
+
+
+def test_multihost_dispatcher_records_no_span_without_a_profiler(counted_maps):
+    for report in counted_maps:
+        assert report["quiet"] == []
 
 
 def test_optimize_multihost_processes_breed_the_same_populations(tmp_path):

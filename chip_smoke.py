@@ -25,6 +25,13 @@ JSON line:
    phase: bit for bit equal to B single launches and within 5e-5 of its
    batched plain version; device times of both at 511² and 1023² beside B ×
    the single sweep's bound.
+2c. stencil_kernel: the constant-stencil kernel (csrc/stencil2d.cu) in its
+   three modes, apply (the 5-point operator), restrict (full weighting)
+   and prolong (bilinear, injection included) at c = 2, at every level of
+   the main path (63² to 1023²) in float32 and float64: bit for bit the
+   plain torch chain it replaces, and the device time of both (and the
+   span of one call) beside the bytes' bound over 3.35 TB/s and the
+   launch floor.
 3. levels: the kernel's device time on the 5-point stencil at every level
    of the main path (63² to 1023²), L2 warm as the main path finds it
    (evostencils_torch/measure.py, as for the kernel phase), beside the
@@ -305,6 +312,7 @@ Before the last line it prints the kernels as one JSON object and the card's
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -328,15 +336,16 @@ from evostencils_torch.grammar.multigrid import generate_primitive_set
 from evostencils_torch.ir import base, krylov, reference_cycles
 from evostencils_torch.ir import partitioning as part
 from evostencils_torch.ir.transformations import canonical_string, collect_cycles
-from evostencils_torch.measure import LEVELS, bound_ms, median_device_ms
-from evostencils_torch.ops import _build, rb_sweep
+from evostencils_torch.measure import HBM_BYTES_PER_MS, LEVELS, bound_ms, median_device_ms
+from evostencils_torch.ops import _build, intergrid, rb_sweep, stencil_kernel
+from evostencils_torch.ops import stencil_ops as sops
 from evostencils_torch.optimization.optimizer import Optimizer
 from evostencils_torch.backend.lowering import CycleLowering
 from evostencils_torch.parallel.dispatch import SerialDispatcher, ThreadPoolDispatcher
 from evostencils_torch.problems import elasticity, fas, load_problem_file, poisson
 from evostencils_torch.problems.helmholtz import helmholtz_2d
 from evostencils_torch.problems.poisson import poisson_2d
-from evostencils_torch.stencils import constant
+from evostencils_torch.stencils import constant, gallery
 from evostencils_torch.utils.champions import apply_stored_omegas, parse_champion_file
 from evostencils_torch.utils.timing import per_cycle_time, wall_cycle_time
 from scripts import (
@@ -496,6 +505,77 @@ def phase_kernel(failures: list) -> dict:
         by_shape[shape] = entry
         emit({"phase": "kernel", **entry})
     return by_shape
+
+
+@contextlib.contextmanager
+def plain_chain():
+    """Every constant-stencil op as its plain torch chain: the gate refuses
+    all (ops/stencil_kernel.py)."""
+    kept = stencil_kernel.refusal
+    stencil_kernel.refusal = lambda *args, **kwargs: "plain chain timed"
+    try:
+        yield
+    finally:
+        stencil_kernel.refusal = kept
+
+
+def stencil_bound_ms(mode: str, shape, itemsize: int) -> float:
+    """Least time of one constant-stencil op over the card's memory rate:
+    apply reads the field and writes the output once; restrict reads the
+    fine field and writes the coarse one; prolong reads the coarse field
+    and writes the fine one."""
+    fine = shape[0] * shape[1]
+    coarse = ((shape[0] - 1) // 2) * ((shape[1] - 1) // 2)
+    points = 2 * fine if mode == "apply" else fine + coarse
+    return itemsize * points / HBM_BYTES_PER_MS
+
+
+def phase_stencil_kernel(failures: list) -> list:
+    """The constant-stencil kernel's three modes (the 5-point operator, a
+    full-weighting restriction and a bilinear prolongation at c = 2) at
+    every level of the main path in float32 and float64: bit for bit its
+    plain chain, and the device time of both beside the bytes' bound."""
+    rng = np.random.default_rng(6)
+    five = STENCILS["5-point"]
+    weighting = gallery.full_weighting_restriction_stencil(2)
+    bilinear = gallery.multilinear_interpolation_stencil(2)
+    floor_ms = median_device_ms(lambda: torch.cuda._sleep(0))
+    entries = []
+    for dtype in (torch.float32, torch.float64):
+        itemsize = torch.finfo(dtype).bits // 8
+        for shape in LEVELS:
+            coarse_shape = tuple((n - 1) // 2 for n in shape)
+            fine, coarse = (torch.from_numpy(rng.standard_normal(s)).to(dtype=dtype,
+                                                                        device="cuda")
+                            for s in (shape, coarse_shape))
+            calls = {
+                "apply": lambda: sops.apply_constant_stencil(fine, five),
+                "restrict": lambda: intergrid.restrict(fine, weighting, coarse_shape, (2, 2)),
+                "prolong": lambda: intergrid.prolong(coarse, bilinear, shape, (2, 2)),
+            }
+            for mode, call in calls.items():
+                out = call()
+                with plain_chain():
+                    want = call()
+                view = torch.int32 if dtype == torch.float32 else torch.int64
+                same = bool(torch.equal(out.view(view), want.view(view)))
+                if not same:
+                    failures.append(f"stencil kernel {mode} {dtype} {shape}: not bit for bit "
+                                    "the plain chain")
+                entry = {"mode": mode, "dtype": str(dtype).replace("torch.", ""),
+                         "shape": list(shape), "bitwise_equal_to_plain_chain": same,
+                         "ms": median_device_ms(call),
+                         "bound_ms": stencil_bound_ms(mode, shape, itemsize),
+                         "launch_floor_ms": floor_ms}
+                with plain_chain():
+                    entry["plain_ms"] = median_device_ms(call)
+                    entry["plain_call_ms"] = median_call_ms(call)
+                entry["call_ms"] = median_call_ms(call)
+                entry["share_of_bound"] = entry["bound_ms"] / entry["ms"]
+                entries.append(entry)
+                emit({"phase": "stencil_kernel", **entry})
+    stencil_kernel.clear_counts()
+    return entries
 
 
 def phase_levels() -> list:
@@ -2919,6 +2999,7 @@ def main() -> int:
     device = timed("device", phase_device)
     kernel = timed("kernel", phase_kernel, failures)
     kernel_batched = timed("kernel_batched", phase_kernel_batched, failures)
+    timed("stencil_kernel", phase_stencil_kernel, failures)
     timed("levels", phase_levels)
     launches_by_role, generator, champion, champion_rho, graph_mode = timed(
         "main_path", phase_main_path, failures)

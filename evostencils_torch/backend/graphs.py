@@ -58,7 +58,7 @@ import numpy as np
 
 from evostencils_torch import CudaGraphError
 from evostencils_torch.backend.vm import Program
-from evostencils_torch.ops import rb_sweep
+from evostencils_torch.ops import rb_sweep, stencil_kernel
 from evostencils_torch.ops import stencil_ops as sops
 from evostencils_torch.utils import profiling
 
@@ -132,13 +132,17 @@ def storage_bytes(tensors) -> int:
 
 
 class Graph:
-    """A captured CUDA graph.  `replay()` launches it and counts the replay
-    and the sweep kernel's launches the capture recorded, by grid shape
-    (ops/rb_sweep.py: the counter holds launches that reached the device)."""
+    """A captured CUDA graph.  `replay()` launches it and counts the replay,
+    the sweep kernel's launches the capture recorded, by grid shape
+    (ops/rb_sweep.py: the counter holds launches that reached the device),
+    and the stencil kernel's launches and refusals (ops/stencil_kernel.py)."""
 
-    def __init__(self, cuda_graph, launches: collections.Counter):
+    def __init__(self, cuda_graph, launches: collections.Counter,
+                 stencil_counts: stencil_kernel.Recorded = None):
         self._graph = cuda_graph
         self.launches = launches
+        self.stencil_counts = (stencil_counts if stencil_counts is not None
+                               and (stencil_counts.launches or stencil_counts.plain) else None)
 
     def replay(self) -> None:
         """While a profiler runs, the host's ns of the replay go to the
@@ -150,6 +154,8 @@ class Graph:
         counters.add("replays")
         if self.launches:
             rb_sweep.count_replay(self.launches)
+        if self.stencil_counts is not None:
+            stencil_kernel.count_replay(self.stencil_counts)
 
 
 def read(t: torch.Tensor):
@@ -204,7 +210,8 @@ def capture(fn, warmup: int = 1, pool=None):
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with rb_sweep.recording_launches() as recorded, torch.cuda.stream(stream):
+            with rb_sweep.recording_launches() as recorded, \
+                    stencil_kernel.recording() as stencil_recorded, torch.cuda.stream(stream):
                 graph.capture_begin(pool=pool, capture_error_mode="thread_local")
                 try:
                     out = fn()
@@ -222,7 +229,7 @@ def capture(fn, warmup: int = 1, pool=None):
                 gc.enable()
         counters.add("captures")
         counters.add("capture_s", time.perf_counter() - t0)
-    return Graph(graph, recorded), out
+    return Graph(graph, recorded, stencil_recorded), out
 
 
 def _tensors(value):

@@ -97,5 +97,15 @@ def library() -> ctypes.CDLL:
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ]
             lib.rb_sweep_f32_batched.restype = ctypes.c_int
+            # The constant-stencil kernel: mode, in, out, the host arrays of
+            # offsets and weights, the count, members, both shapes and the
+            # coarsening factors.
+            for name, scalar in (("stencil2d_f32", ctypes.c_float),
+                                 ("stencil2d_f64", ctypes.c_double)):
+                getattr(lib, name).argtypes = [
+                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.POINTER(ctypes.c_int), ctypes.POINTER(scalar),
+                ] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+                getattr(lib, name).restype = ctypes.c_int
             _library = lib
         return _library

@@ -8,6 +8,8 @@ Vertex-centred hierarchy with Dirichlet boundaries, as in the reference:
 Restriction is the stencil on the fine grid read at the coarse lattice,
 computed as strided views of the zero-padded fine field; prolongation
 injects the coarse values into a zero fine field and applies the stencil.
+On the card a real 2D stencil takes one launch of the stencil kernel for
+either (ops/stencil_kernel.py), with the same bits.
 The reference's per-axis factor matrices and conv tiers are TPU layout
 choices and have no counterpart here.
 
@@ -26,7 +28,8 @@ from typing import Tuple
 
 import torch
 
-from evostencils_torch.ops.stencil_ops import apply_constant_stencil, member_shape, pad, scalar
+from evostencils_torch.ops import stencil_kernel
+from evostencils_torch.ops.stencil_ops import member_shape, pad, plain_constant_stencil, scalar
 from evostencils_torch.stencils import constant
 
 
@@ -38,7 +41,11 @@ def restrict(
     slab=None,
 ) -> torch.Tensor:
     """coarse[ci] = Σ_o w_o · fine[c·(ci+1)-1 + o] (zero outside interior);
-    on a fine slab, this rank's coarse rows."""
+    on a fine slab, this rank's coarse rows.  One launch of the stencil
+    kernel where its gate takes the call (ops/stencil_kernel.py)."""
+    fine_shape = fine.shape[fine.dim() - len(coarse_shape):]
+    if stencil_kernel.check(fine, stencil, slab, fine_shape, coarse_shape, coarsening):
+        return stencil_kernel.restrict(fine, stencil, coarse_shape, coarsening)
     reach = stencil.max_reach()
     padded = pad(fine, reach, slab)
     first = [c - 1 for c in coarsening]
@@ -85,6 +92,10 @@ def prolong(
 ) -> torch.Tensor:
     """fine = stencil ∘ injection(coarse); multilinear weights interpolate.
     On a fine slab, `coarse` is this rank's coarse rows and `fine_shape` the
-    slab's shape."""
-    return apply_constant_stencil(
+    slab's shape.  One launch of the stencil kernel, injection included,
+    where its gate takes the call (ops/stencil_kernel.py)."""
+    coarse_shape = coarse.shape[coarse.dim() - len(fine_shape):]
+    if stencil_kernel.check(coarse, stencil, slab, fine_shape, coarse_shape, coarsening):
+        return stencil_kernel.prolong(coarse, stencil, fine_shape, coarsening)
+    return plain_constant_stencil(
         inject_to_fine(coarse, fine_shape, coarsening, slab), stencil, slab)

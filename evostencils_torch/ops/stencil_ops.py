@@ -5,9 +5,10 @@ Grid functions are dense tensors over the interior nodes of a structured
 grid with homogeneous Dirichlet boundaries.  A constant stencil is a sum of
 shifted views of the zero-padded field, summed in the stencil's entry order
 as the reference does; a variable-coefficient stencil is the same sum with
-one coefficient plane per offset in place of the scalar.  Plain torch: the
-only hand-written kernel on these paths is the fused red-black sweep
-(ops/rb_sweep.py), which takes constant 2D stencils only.
+one coefficient plane per offset in place of the scalar.  A real constant
+2D stencil on a CUDA tensor is one launch of the stencil kernel
+(ops/stencil_kernel.py), which gives the plain sum's bits; everything else
+is plain torch, apart from the fused red-black sweep (ops/rb_sweep.py).
 
 Every op that reads across rows or by position takes an optional `slab`
 (parallel/mesh.py): the field is then this rank's rows of a grid split
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from evostencils_torch.ops import stencil_kernel
 from evostencils_torch.parallel.mesh import halo_exchange
 from evostencils_torch.stencils import constant, periodic
 
@@ -88,7 +90,17 @@ def shifted_view(padded: torch.Tensor, offset, reach, shape) -> torch.Tensor:
 
 
 def apply_constant_stencil(u: torch.Tensor, stencil: constant.Stencil, slab=None) -> torch.Tensor:
-    """y[x] = Σ_o v_o · u[x+o], u extended by zero outside the interior."""
+    """y[x] = Σ_o v_o · u[x+o], u extended by zero outside the interior:
+    one launch of the stencil kernel where its gate takes the call
+    (ops/stencil_kernel.py), the same bits as the plain sum."""
+    if stencil_kernel.check(u, stencil, slab):
+        return stencil_kernel.apply(u, stencil)
+    return plain_constant_stencil(u, stencil, slab)
+
+
+def plain_constant_stencil(u: torch.Tensor, stencil: constant.Stencil, slab=None) -> torch.Tensor:
+    """The plain sum of shifted views of the padded field: one multiply an
+    entry and one add each after the first."""
     if stencil.number_of_entries == 0:
         return torch.zeros_like(u)
     reach = stencil.max_reach()

@@ -333,7 +333,9 @@ def test_kernel_library_builds_once_from_four_threads(monkeypatch, tmp_path):
 
     def cdll_stub(path):
         return types.SimpleNamespace(rb_sweep_f32=types.SimpleNamespace(),
-                                     rb_sweep_f32_batched=types.SimpleNamespace())
+                                     rb_sweep_f32_batched=types.SimpleNamespace(),
+                                     stencil2d_f32=types.SimpleNamespace(),
+                                     stencil2d_f64=types.SimpleNamespace())
 
     monkeypatch.setattr(_build, "_library", None)
     monkeypatch.setattr(_build, "library_path", lambda: target)

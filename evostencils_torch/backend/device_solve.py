@@ -40,6 +40,7 @@ CudaGraphError: it never runs eagerly in its place.
 
 from __future__ import annotations
 
+import functools
 import math
 import time
 from typing import Callable, Tuple
@@ -59,12 +60,13 @@ from evostencils_torch.utils import profiling
 CAPTURE_WARMUP = 3
 
 
-def _to_host64(state):
-    """A device state as fresh host float64 arrays, which the caller may
-    keep.  From a card each field is copied into its own page-locked buffer
-    from torch's caching host allocator (a direct copy, no pageable
-    staging), a float64 field with no further copy; on the CPU as ever, a
-    float64 copy of the tensor's memory."""
+def to_host(state, dtype=np.float64):
+    """A device state as fresh host arrays of `dtype` (float64, or
+    complex128 for a complex state), which the caller may keep.  From a
+    card each field is copied into its own page-locked buffer from torch's
+    caching host allocator (a direct copy, no pageable staging), a field
+    already of `dtype` with no further copy; on the CPU, a copy of the
+    tensor's memory in `dtype`."""
     out = []
     for x in state:
         x = x.detach()
@@ -72,9 +74,9 @@ def _to_host64(state):
             host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
             host.copy_(x)
             host = host.numpy()
-            out.append(host if host.dtype == np.float64 else host.astype(np.float64))
+            out.append(host if host.dtype == dtype else host.astype(dtype))
         else:
-            out.append(x.cpu().numpy().astype(np.float64))
+            out.append(x.cpu().numpy().astype(dtype))
     return tuple(out)
 
 
@@ -164,13 +166,48 @@ def _reactive_stage(loop, inner_cap, stall_ratio, stage_reduction=None):
 
 
 def _host_stage(loop, run, r_host):
-    """One reactive stage on the float32 cast of the host residual
-    `r_host`: (e in host float64, executed cycles, the stage's
-    reduction)."""
+    """One stage, `run()`, on the float32 cast of the host residual
+    `r_host`: (e in host float64, what run() returned)."""
     with profiling.span("loop.restarts"):
         _copy_host(loop.fs, (np.asarray(x, np.float32) for x in r_host))
-        k, rs0, rn, _ = run()
-        return _to_host64(loop.e), k, rn / rs0
+        result = run()
+        return to_host(loop.e), result
+
+
+def _verdict(host_residual, f64, u, r0=None):
+    """The verdict on the iterate `u`, under the span `solve.verdict`:
+    r = f − A·u in exact host float64 (`host_residual`) and ‖r‖ / r0.  A
+    device iterate (a loop's `u64`) is read back first; r0 None is ‖f‖.
+    Returns (u on the host, r, r0, ‖r‖ / r0)."""
+    with profiling.span("solve.verdict"):
+        if torch.is_tensor(u[0]):
+            u = to_host(u)
+        r = host_residual(u, f64)
+        if r0 is None:
+            r0 = numpy_l2_norm(f64)
+        return u, r, r0, numpy_l2_norm(r) / r0
+
+
+def _host_restarts(stage, verdict, start, cycles, stages, max_stages, target):
+    """The host-restart loop of every staged solver.  From `start`, (u, r,
+    r0, rel) as `verdict(u, r0)` returns them, while rel > target, stages
+    < max_stages and cycles < 1000: one stage on the host residual r,
+    `stage(r) -> (e in host float64, executed cycles)`, then the verdict
+    on u + e.  It stops when a stage executes nothing or the restart no
+    longer improves rel (the true floor), keeping the last rel that did.
+    Returns (cycles, rel, stages)."""
+    u, r, r0, rel = start
+    while rel > target and stages < max_stages and cycles < 1000:
+        e, executed = stage(r)
+        if executed == 0:
+            break
+        u, r, _, new_rel = verdict(tuple(a + x for a, x in zip(u, e)), r0)
+        cycles += executed
+        stages += 1
+        if new_rel >= rel:
+            break
+        rel = new_rel
+    return cycles, rel, stages
 
 
 def build_staged_solver(
@@ -201,31 +238,16 @@ def build_staged_solver(
 
     def stage(r_host):
         with loop.lock:
-            return _host_stage(loop, run, r_host)
+            e, (k, rs0, rn, _) = _host_stage(loop, run, r_host)
+            return e, k, rn / rs0
 
     def solve(f32_rhs, f64_rhs_np):
         with profiling.span("solve", root=True):
             f64 = tuple(np.asarray(x, np.float64) for x in f64_rhs_np)
-            r64 = f64
-            u64 = tuple(np.zeros(s, np.float64) for s in shapes)
-            r0 = numpy_l2_norm(r64)
-            cycles = 0
-            stages = 0
-            rel = 1.0
-            while rel > target and stages < max_stages and cycles < 1000:
-                e, kk, _ = stage(r64)
-                if kk == 0:
-                    break
-                u64 = tuple(u + x for u, x in zip(u64, e))
-                with profiling.span("solve.verdict"):
-                    r64 = host_residual(u64, f64)
-                    new_rel = numpy_l2_norm(r64) / r0
-                cycles += kk
-                stages += 1
-                if new_rel >= rel:
-                    break  # restart no longer improves — true floor reached
-                rel = new_rel
-            return cycles, rel, stages
+            zero = tuple(np.zeros(s, np.float64) for s in shapes)
+            return _host_restarts(lambda r: stage(r)[:2],
+                                  functools.partial(_verdict, host_residual, f64),
+                                  (zero, f64, numpy_l2_norm(f64), 1.0), 0, 0, max_stages, target)
 
     return solve, stage
 
@@ -281,7 +303,7 @@ def build_fused_staged_solver(
     loop = loop or StagedLoop(step, apply_a32, shapes, device, apply_a64)
     run_stage = _reactive_stage(loop, inner_cap, stall_ratio, stage_reduction)
 
-    def inner(_k):
+    def inner(_k=None):
         return run_stage()[0]
 
     def solve(f32_rhs, f64_rhs_np):
@@ -289,27 +311,11 @@ def build_fused_staged_solver(
             f64 = tuple(np.asarray(x, np.float64) for x in f64_rhs_np)
             _copy_host(loop.f64, f64)
             cycles, stages = _device_restart_loop(loop, inner, target, max_stages)
-            with profiling.span("solve.verdict"):
-                u_host = _to_host64(loop.u64)
-                r_true = host_residual(u_host, f64)
-                r0 = numpy_l2_norm(f64)
-                rel = numpy_l2_norm(r_true) / r0
             # Host-restart polish when the device loop stopped short of the
             # target.
-            while rel > target and stages < max_stages and cycles < 1000:
-                e, kk, _ = _host_stage(loop, run_stage, r_true)
-                if kk == 0:
-                    break
-                u_host = tuple(u + x for u, x in zip(u_host, e))
-                with profiling.span("solve.verdict"):
-                    r_true = host_residual(u_host, f64)
-                    new_rel = numpy_l2_norm(r_true) / r0
-                cycles += kk
-                stages += 1
-                if new_rel >= rel:
-                    break
-                rel = new_rel
-            return cycles, rel, stages
+            verdict = functools.partial(_verdict, host_residual, f64)
+            return _host_restarts(lambda r: _host_stage(loop, inner, r), verdict,
+                                  verdict(loop.u64), cycles, stages, max_stages, target)
 
     return solve
 
@@ -408,27 +414,12 @@ def build_predicted_staged_solver(
             _copy_host(loop.f64, f64)
             cycles, stages = _device_restart_loop(
                 loop, inner, target, max_stages, k0=k_stage, next_k=next_k)
-            with profiling.span("solve.verdict"):
-                u_host = _to_host64(loop.u64)
-                r_true = host_residual(u_host, f64)
-                r0 = numpy_l2_norm(f64)
-                rel = numpy_l2_norm(r_true) / r0
-            # Host-restart polish when the device loop stopped short.
-            while rel > target and stages < max_stages + 4 and cycles < 1000:
-                with profiling.span("loop.restarts"):
-                    _copy_host(loop.fs, (np.asarray(x, np.float32) for x in r_true))
-                    inner(k_stage)
-                    e = _to_host64(loop.e)
-                u_host = tuple(u + x for u, x in zip(u_host, e))
-                with profiling.span("solve.verdict"):
-                    r_true = host_residual(u_host, f64)
-                    new_rel = numpy_l2_norm(r_true) / r0
-                cycles += k_stage
-                stages += 1
-                if new_rel >= rel:
-                    break
-                rel = new_rel
-            return cycles, rel, stages
+            # Host-restart polish when the device loop stopped short: stages
+            # of exactly k_stage cycles.
+            verdict = functools.partial(_verdict, host_residual, f64)
+            return _host_restarts(
+                lambda r: _host_stage(loop, lambda: inner(k_stage), r), verdict,
+                verdict(loop.u64), cycles, stages, max_stages + 4, target)
 
     return solve
 

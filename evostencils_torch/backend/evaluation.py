@@ -84,6 +84,7 @@ import torch
 
 from evostencils_torch import dtype_is_64bit, dtype_is_complex, numpy_dtype
 from evostencils_torch.backend import graphs
+from evostencils_torch.backend.device_solve import to_host
 from evostencils_torch.backend.graphs import StepCycle
 from evostencils_torch.backend.lowering import CycleLowering
 from evostencils_torch.backend.vm import CycleVM, Program, batched_program
@@ -777,7 +778,7 @@ class TorchProgramGenerator:
         fields of `grids`, gathered from the slabs."""
         if self.layout is not None:
             state = gather_state(state, [g.interior_shape for g in grids], self.layout)
-        return tuple(x.cpu().numpy().astype(self._np_acc) for x in state)
+        return to_host(state, self._np_acc)
 
     def _to_device(self, host_state):
         """Whole host fields on the device; on a mesh this rank's rows."""

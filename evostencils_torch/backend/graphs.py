@@ -58,7 +58,7 @@ import numpy as np
 
 from evostencils_torch import CudaGraphError
 from evostencils_torch.backend.vm import Program
-from evostencils_torch.ops import rb_sweep, stencil_kernel
+from evostencils_torch.ops import _build
 from evostencils_torch.ops import stencil_ops as sops
 from evostencils_torch.utils import profiling
 
@@ -132,17 +132,13 @@ def storage_bytes(tensors) -> int:
 
 
 class Graph:
-    """A captured CUDA graph.  `replay()` launches it and counts the replay,
-    the sweep kernel's launches the capture recorded, by grid shape
-    (ops/rb_sweep.py: the counter holds launches that reached the device),
-    and the stencil kernel's launches and refusals (ops/stencil_kernel.py)."""
+    """A captured CUDA graph.  `replay()` launches it and counts the replay
+    and what its capture `recorded` of the hand-written kernels' counters
+    (ops/_build.recording: launches, and the gates' refusals)."""
 
-    def __init__(self, cuda_graph, launches: collections.Counter,
-                 stencil_counts: stencil_kernel.Recorded = None):
+    def __init__(self, cuda_graph, recorded: dict = None):
         self._graph = cuda_graph
-        self.launches = launches
-        self.stencil_counts = (stencil_counts if stencil_counts is not None
-                               and (stencil_counts.launches or stencil_counts.plain) else None)
+        self.recorded = recorded or {}
 
     def replay(self) -> None:
         """While a profiler runs, the host's ns of the replay go to the
@@ -152,10 +148,8 @@ class Graph:
         if t0 is not None:
             profiling.add_time("replay", time.time_ns() - t0)
         counters.add("replays")
-        if self.launches:
-            rb_sweep.count_replay(self.launches)
-        if self.stencil_counts is not None:
-            stencil_kernel.count_replay(self.stencil_counts)
+        if self.recorded:
+            _build.count_replay(self.recorded)
 
 
 def read(t: torch.Tensor):
@@ -210,8 +204,7 @@ def capture(fn, warmup: int = 1, pool=None):
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with rb_sweep.recording_launches() as recorded, \
-                    stencil_kernel.recording() as stencil_recorded, torch.cuda.stream(stream):
+            with _build.recording() as recorded, torch.cuda.stream(stream):
                 graph.capture_begin(pool=pool, capture_error_mode="thread_local")
                 try:
                     out = fn()
@@ -229,7 +222,7 @@ def capture(fn, warmup: int = 1, pool=None):
                 gc.enable()
         counters.add("captures")
         counters.add("capture_s", time.perf_counter() - t0)
-    return Graph(graph, recorded, stencil_recorded), out
+    return Graph(graph, recorded), out
 
 
 def _tensors(value):
@@ -353,8 +346,8 @@ class Interpreter:
     `load(program)` copies the program's ω into the state; `run_cycle()`
     runs the loaded program once on the finest level (`u`, `f`): the
     prologue's graph, then the branches' graphs in program order, each
-    replay counted by Graph.replay (the replays, the sweep kernel's
-    recorded launches).  A body that cannot be captured raises
+    replay counted by Graph.replay (the replays, the kernels' recorded
+    launches).  A body that cannot be captured raises
     CudaGraphError; nothing runs eagerly in its place.  `lock` serialises
     the loops and threads that share the state; `captures` counts this
     interpreter's graphs, `nbytes` its pool and state.  Over a LevelState

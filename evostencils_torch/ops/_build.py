@@ -1,4 +1,5 @@
-"""Build the package's CUDA sources at first use and load them with ctypes.
+"""Build the package's CUDA sources at first use, load them with ctypes, and
+count their launches.
 
 `nvcc` compiles every `evostencils_torch/csrc/*.cu` into one shared library
 with a plain C interface under `build/evostencils_torch/` at the root of
@@ -6,10 +7,17 @@ the checkout.  The file name carries a hash of the sources and flags, so an
 edited source is rebuilt and an unchanged one is loaded as it is.  The
 build uses only the repository's sources and the CUDA toolkit (`nvcc` from
 `$CUDA_HOME/bin`, `/usr/local/cuda/bin` or `PATH`).
+
+This module names no kernel.  Each kernel's wrapper declares its own entry
+points (`entry`) and counts into its own counters (`counter`, `count`);
+backend/graphs.capture records what a capture counted (`recording`) and
+each replay of the graph adds it again (`count_replay`).
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -18,6 +26,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 from evostencils_torch import CudaKernelError
 
@@ -36,6 +46,8 @@ _library_lock = threading.Lock()
 # and what nvcc printed, including ptxas' register and shared-memory use.
 build_seconds = None
 build_log = ""
+# The C entry points the wrappers declared (entry()): name -> argtypes.
+_entries = {}
 
 
 def _nvcc() -> str:
@@ -74,8 +86,26 @@ def _compile(target: Path) -> None:
     build_log = proc.stdout + proc.stderr
 
 
+def entry(name: str, argtypes) -> None:
+    """Declare the library's C entry point `name`: its argument types; it
+    returns a CUDA error code.  Pass every pointer and the stream as
+    c_void_p: ctypes would pass a bare Python int as a 32-bit int and cut
+    the pointer."""
+    with _library_lock:
+        _entries[name] = list(argtypes)
+        if _library is not None:
+            _declare(_library, name)
+
+
+def _declare(lib: ctypes.CDLL, name: str) -> None:
+    function = getattr(lib, name)
+    function.argtypes = _entries[name]
+    function.restype = ctypes.c_int
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
+    """The loaded kernel library, built first if needed, with every entry
+    point declared so far."""
     global _library
     with _library_lock:
         if _library is None:
@@ -83,29 +113,85 @@ def library() -> ctypes.CDLL:
             if not target.exists():
                 _compile(target)
             lib = ctypes.CDLL(str(target))
-            # Every pointer and the stream as c_void_p: ctypes would pass a
-            # bare Python int as a 32-bit int and cut the pointer.
-            # The stencil's coefficients and presence bits are host arrays.
-            stencil = [ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint32),
-                       ctypes.c_int, ctypes.c_float]
-            lib.rb_sweep_f32.argtypes = [ctypes.c_void_p] * 4 + stencil + [
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ]
-            lib.rb_sweep_f32.restype = ctypes.c_int
-            # The batched launch takes the member count before the shape.
-            lib.rb_sweep_f32_batched.argtypes = [ctypes.c_void_p] * 4 + stencil + [
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ]
-            lib.rb_sweep_f32_batched.restype = ctypes.c_int
-            # The constant-stencil kernel: mode, in, out, the host arrays of
-            # offsets and weights, the count, members, both shapes and the
-            # coarsening factors.
-            for name, scalar in (("stencil2d_f32", ctypes.c_float),
-                                 ("stencil2d_f64", ctypes.c_double)):
-                getattr(lib, name).argtypes = [
-                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.POINTER(ctypes.c_int), ctypes.POINTER(scalar),
-                ] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-                getattr(lib, name).restype = ctypes.c_int
+            for name in _entries:
+                _declare(lib, name)
             _library = lib
         return _library
+
+
+# Launch accounting, one scheme for every kernel.  A counter holds what
+# reached the device since it was cleared: each eager launch where it
+# happens, and each launch a CUDA-graph replay runs.  A capture launches
+# nothing: backend/graphs.capture records what count() was given while it
+# captured, and each replay adds that recording.  The recording is
+# thread-local, since threads capture their own graphs at once.
+# Counter's += reads and then writes: threads that launch at once would
+# lose counts without the lock.
+_counts_lock = threading.Lock()
+_capturing = threading.local()
+# id(counter) -> the part of that counter that replays ran.
+_replayed = {}
+
+
+def counter() -> collections.Counter:
+    """A new counter for count(), by any key; `replayed(counter)` is its
+    part that graph replays ran."""
+    new = collections.Counter()
+    _replayed[id(new)] = collections.Counter()
+    return new
+
+
+def replayed(counter: collections.Counter) -> collections.Counter:
+    return _replayed[id(counter)]
+
+
+def count(counter: collections.Counter, key, x: torch.Tensor = None,
+          refusal: bool = False) -> None:
+    """One more `key` in `counter` for a launch on (or, with `refusal`, a
+    gate's refusal of) the tensor `x`.  While x's stream is being captured
+    by backend/graphs.capture it goes to that capture's recording, so that
+    every replay counts it; under any other capture a launch raises
+    CudaKernelError, since nothing would count its replays, and a refusal,
+    which ran the plain ops, is counted now.  Without x, on the CPU or
+    outside a capture it is counted now."""
+    if x is not None and x.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        recorded = getattr(_capturing, "recording", None)
+        if recorded is not None:
+            recorded.setdefault(id(counter), (counter, collections.Counter()))[1][key] += 1
+            return
+        if not refusal:
+            raise CudaKernelError(
+                "a kernel launched under a CUDA-graph capture that backend/graphs.capture "
+                "did not start: its replays would not be counted")
+    with _counts_lock:
+        counter[key] += 1
+
+
+@contextlib.contextmanager
+def recording():
+    """What count() is given on this thread meanwhile, by counter: the
+    recording of a CUDA-graph capture (backend/graphs.capture)."""
+    recorded = {}
+    outer = getattr(_capturing, "recording", None)
+    _capturing.recording = recorded
+    try:
+        yield recorded
+    finally:
+        _capturing.recording = outer
+
+
+def count_replay(recorded: dict) -> None:
+    """One replay of a graph whose capture recorded `recorded`."""
+    with _counts_lock:
+        for counter, counts in recorded.values():
+            replays = _replayed[id(counter)]
+            for key, n in counts.items():
+                counter[key] += n
+                replays[key] += n
+
+
+def clear(*counters: collections.Counter) -> None:
+    with _counts_lock:
+        for counter in counters:
+            counter.clear()
+            _replayed[id(counter)].clear()

@@ -15,11 +15,8 @@ step on u[b], f[b] with ω[b], bit for bit.
 
 from __future__ import annotations
 
-import collections
-import contextlib
 import ctypes
 import functools
-import threading
 
 import torch
 
@@ -43,51 +40,31 @@ MAX_MEMBERS = 16
 # Side of the dense coefficient grid the kernel's C entry point reads.
 _SIDE = 2 * MAX_RADIUS + 1
 
+# The C entry points: u, f, out and ω on the device, the stencil's dense
+# coefficients and presence bits on the host, its template radius and
+# 1/centre, the shape (the batched launch takes the member count first)
+# and the stream.
+_STENCIL_ARGS = [ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint32),
+                 ctypes.c_int, ctypes.c_float]
+_build.entry("rb_sweep_f32", [ctypes.c_void_p] * 4 + _STENCIL_ARGS + [ctypes.c_int] * 2
+             + [ctypes.c_void_p])
+_build.entry("rb_sweep_f32_batched", [ctypes.c_void_p] * 4 + _STENCIL_ARGS
+             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
 # Kernel launches that reached the device, by grid shape (rows, cols), or
-# (members, rows, cols) for a batched launch, since the last clear(): each
-# eager launch where the wrapper launches, and
-# each launch a CUDA-graph replay runs (backend/graphs.py adds the launches
-# its capture recorded once per replay).  A capture itself launches nothing
-# and counts nothing.
-launches = collections.Counter()
+# (members, rows, cols) for a batched launch, since the last clear_counts(),
+# eager or replayed (ops/_build.py counts them).
+launches = _build.counter()
 # The part of `launches` that graph replays ran.
-replayed = collections.Counter()
-# Counter's += reads and then writes: threads that launch at once would
-# lose counts without it.
-_launches_lock = threading.Lock()
-# The launches the capture running on this thread records.
-_recording = threading.local()
+replayed = _build.replayed(launches)
 
 
 def count_launch(shape) -> None:
-    with _launches_lock:
-        launches[tuple(shape)] += 1
-
-
-def count_replay(recorded: collections.Counter) -> None:
-    """One replay of a graph whose capture recorded `recorded`."""
-    with _launches_lock:
-        launches.update(recorded)
-        replayed.update(recorded)
+    _build.count(launches, tuple(shape))
 
 
 def clear_counts() -> None:
-    with _launches_lock:
-        launches.clear()
-        replayed.clear()
-
-
-@contextlib.contextmanager
-def recording_launches():
-    """Collect, by grid shape, the launches a CUDA-graph capture on this
-    thread records (backend/graphs.capture)."""
-    recorded = collections.Counter()
-    outer = getattr(_recording, "counter", None)
-    _recording.counter = recorded
-    try:
-        yield recorded
-    finally:
-        _recording.counter = outer
+    _build.clear(launches)
 
 
 def _stencil_radius(entries) -> int:
@@ -205,12 +182,6 @@ def red_black_collective_jacobi_sweep(u, f, omega, stencil: constant.Stencil) ->
         raise ValueError(f"red-black sweep: unsupported {u.dtype} {tuple(u.shape)} {stencil!r}")
     if f.shape != u.shape or f.dtype != u.dtype or f.device != u.device:
         raise ValueError("red-black sweep: u and f differ in shape, dtype or device")
-    capturing = torch.cuda.is_current_stream_capturing()
-    recorded = getattr(_recording, "counter", None)
-    if capturing and recorded is None:
-        raise CudaKernelError(
-            "the red-black sweep under a CUDA-graph capture that backend/graphs.capture "
-            "did not start: its replays would not be counted")
     u = u.contiguous()
     f = f.contiguous()
     omega_arg = _device_omega(omega, u.device, u.shape[0] if batched else 1)
@@ -228,9 +199,5 @@ def red_black_collective_jacobi_sweep(u, f, omega, stencil: constant.Stencil) ->
         err = lib.rb_sweep_f32(*pointers, *u.shape, stream)
     if err != 0:
         raise CudaKernelError(f"{name} did not launch: CUDA error {err}")
-    if capturing:
-        # The capture records the launch; each replay counts it.
-        recorded[tuple(u.shape)] += 1
-    else:
-        count_launch(u.shape)
+    _build.count(launches, tuple(u.shape), u)
     return out

@@ -20,12 +20,9 @@ complex Helmholtz fields, 3D grids, mesh slabs, the CPU.
 
 from __future__ import annotations
 
-import collections
-import contextlib
 import ctypes
 import functools
-import threading
-from typing import NamedTuple, Optional, Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -42,57 +39,25 @@ MAX_ENTRIES = 25
 MAX_MEMBERS = 65535
 MODES = {"apply": 0, "restrict": 1, "prolong": 2}
 
+# The C entry points, one a dtype: mode, in, out, the host arrays of offsets
+# and weights, the count, members, both shapes, the coarsening factors and
+# the stream.
+for _name, _scalar in (("stencil2d_f32", ctypes.c_float), ("stencil2d_f64", ctypes.c_double)):
+    _build.entry(_name, [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(_scalar)]
+                 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+
 # Launches that reached the device, by (mode, output shape), since the last
-# clear_counts(): each eager launch where it happens and each launch a
-# CUDA-graph replay runs (backend/graphs.py adds what its capture recorded
-# once per replay), as ops/rb_sweep.py counts the sweep's.
-launches = collections.Counter()
+# clear_counts(), eager or replayed (ops/_build.py counts them).
+launches = _build.counter()
 # The gate's refusals by reason ("cpu", "slab", "dtype", "grad",
 # "stencil", "dimension", "radius", "entries", "shape"), counted the same
 # way: the calls that ran the plain chain.
-plain = collections.Counter()
-_lock = threading.Lock()
-_recording = threading.local()
-
-
-class Recorded(NamedTuple):
-    """What one CUDA-graph capture recorded: its launches and refusals."""
-    launches: collections.Counter
-    plain: collections.Counter
-
-
-def count_replay(recorded: Recorded) -> None:
-    """One replay of a graph whose capture recorded `recorded`."""
-    with _lock:
-        launches.update(recorded.launches)
-        plain.update(recorded.plain)
+plain = _build.counter()
 
 
 def clear_counts() -> None:
-    with _lock:
-        launches.clear()
-        plain.clear()
-
-
-@contextlib.contextmanager
-def recording():
-    """Collect the launches and refusals of a CUDA-graph capture on this
-    thread (backend/graphs.capture)."""
-    recorded = Recorded(collections.Counter(), collections.Counter())
-    outer = getattr(_recording, "counts", None)
-    _recording.counts = recorded
-    try:
-        yield recorded
-    finally:
-        _recording.counts = outer
-
-
-def _capture_counts(x: torch.Tensor) -> Optional[Recorded]:
-    """The recorder of the capture running on this thread where x's stream
-    is being captured, else None."""
-    if x.device.type != "cuda" or not torch.cuda.is_current_stream_capturing():
-        return None
-    return getattr(_recording, "counts", None)
+    _build.clear(launches, plain)
 
 
 @functools.lru_cache(maxsize=4096)
@@ -143,12 +108,7 @@ def check(x: torch.Tensor, stencil, slab=None, fine_shape=None, coarse_shape=Non
     reason = refusal(x, stencil, slab, fine_shape, coarse_shape, coarsening)
     if reason is None:
         return True
-    recorded = _capture_counts(x)
-    if recorded is not None:
-        recorded.plain[reason] += 1
-    else:
-        with _lock:
-            plain[reason] += 1
+    _build.count(plain, reason, x, refusal=True)
     return False
 
 
@@ -167,12 +127,6 @@ def packed(stencil: constant.Stencil, dtype: torch.dtype):
 
 def _launch(mode: str, x: torch.Tensor, stencil: constant.Stencil,
             out_shape: Sequence[int], coarsening=(1, 1)) -> torch.Tensor:
-    capturing = torch.cuda.is_current_stream_capturing()
-    recorded = getattr(_recording, "counts", None) if capturing else None
-    if capturing and recorded is None:
-        raise CudaKernelError(
-            "the stencil kernel under a CUDA-graph capture that backend/graphs.capture "
-            "did not start: its replays would not be counted")
     x = x.contiguous()
     out = torch.empty(tuple(x.shape[:-2]) + tuple(out_shape), dtype=x.dtype, device=x.device)
     n, offsets, weights = packed(stencil, x.dtype)
@@ -184,12 +138,7 @@ def _launch(mode: str, x: torch.Tensor, stencil: constant.Stencil,
                 stream)
     if err != 0:
         raise CudaKernelError(f"stencil2d ({mode}) did not launch: CUDA error {err}")
-    key = (mode, tuple(out.shape))
-    if recorded is not None:
-        recorded.launches[key] += 1
-    else:
-        with _lock:
-            launches[key] += 1
+    _build.count(launches, (mode, tuple(out.shape)), x)
     return out
 
 

@@ -511,22 +511,22 @@ def test_predicted_staged_solve_on_graphs_matches_the_eager_bodies(cuda):
 
 @pytest.mark.cuda
 def test_the_verdicts_read_back_is_page_locked_fresh_and_exact(cuda):
-    """device_solve._to_host64 from the card: a float64 field lands in its
+    """device_solve.to_host from the card: a float64 field lands in its
     own page-locked buffer with the device's bits, a float32 field as its
     exact float64 values, and a later read or device write leaves an
     earlier result as it was."""
-    from evostencils_torch.backend.device_solve import _to_host64
+    from evostencils_torch.backend.device_solve import to_host
 
     u64 = torch.randn(511, 511, dtype=torch.float64, device=cuda)
     e32 = torch.randn(511, 511, dtype=torch.float32, device=cuda)
-    first, e_host = _to_host64((u64, e32))
+    first, e_host = to_host((u64, e32))
     assert first.dtype == np.float64 and e_host.dtype == np.float64
     assert torch.from_numpy(first).is_pinned()
     assert np.array_equal(first.view(np.int64), u64.cpu().numpy().view(np.int64))
     assert np.array_equal(e_host, e32.cpu().numpy().astype(np.float64))
     kept = first.copy()
     u64.add_(1.0)
-    (second,) = _to_host64((u64,))
+    (second,) = to_host((u64,))
     assert not np.shares_memory(first, second)
     assert np.array_equal(first.view(np.int64), kept.view(np.int64))
     assert np.array_equal(second, u64.cpu().numpy())

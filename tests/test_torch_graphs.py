@@ -25,9 +25,10 @@ A CPU has no graphs, so these tests hold what a capture relies on:
   eager stand-in) scores every individual as the eager generator does,
   with one interpreter and one glue loop per problem for the VM and one
   loop per lowered structure; the cache's LRU bound; replays count the
-  sweep kernel's recorded launches.
+  kernels' recorded launches, and the capture layer names no kernel.
 """
 
+import ast
 import collections
 import math
 import os
@@ -42,7 +43,7 @@ import torch
 from evostencils_tpu.backend.evaluation import JaxProgramGenerator
 from evostencils_tpu.problems import helmholtz as jax_helmholtz
 from evostencils_tpu.problems.poisson import poisson_2d as jax_poisson_2d
-from evostencils_torch import CudaGraphError
+from evostencils_torch import CudaGraphError, CudaKernelError
 from evostencils_torch.backend import graphs
 from evostencils_torch.backend.evaluation import (
     PowerLoop, StageLoop, StepCycle, TorchProgramGenerator)
@@ -50,7 +51,7 @@ from evostencils_torch.backend.lowering import CycleLowering
 from evostencils_torch.backend.vm import CycleVM
 from evostencils_torch.grammar import gp
 from evostencils_torch.ir.transformations import canonical_string
-from evostencils_torch.ops import krylov, rb_sweep
+from evostencils_torch.ops import _build, krylov, rb_sweep, stencil_kernel
 from evostencils_torch.ops import stencil_ops as sops
 from evostencils_torch.problems import fas, helmholtz
 from evostencils_torch.problems.poisson import poisson_2d
@@ -210,8 +211,7 @@ class FakeGraphCache(graphs.GraphCache):
     entries weigh what their tensors weigh."""
 
     def _capture(self, loop):
-        loop._graphs = {name: graphs.Graph(EagerCapture(getattr(loop, name)),
-                                           collections.Counter())
+        loop._graphs = {name: graphs.Graph(EagerCapture(getattr(loop, name)))
                         for name in loop.bodies}
         loop.nbytes = sum(t.numel() * t.element_size() for value in vars(loop).values()
                           for t in graphs._tensors(value))
@@ -598,20 +598,87 @@ def test_graph_cache_evicts_the_least_recently_used_beyond_its_bound():
     assert len(cache) == 0 and cache.bytes_held == 0
 
 
-def test_replays_count_the_launches_their_capture_recorded():
-    rb_sweep.clear_counts()
+class _OnCard:
+    """A launch's input as a CUDA tensor shows it to ops/_build.count,
+    without a card."""
+
+    device = torch.device("cuda", 0)
+
+
+# A kernel's counter registered by a module that backend/graphs.py never
+# names: the capture layer records and replays it as it does the two
+# kernels'.
+STUB = _build.counter()
+KERNEL_COUNTERS = (rb_sweep.launches, stencil_kernel.launches, stencil_kernel.plain, STUB)
+# What each case's capture counts: (counter, key) pairs, a refusal where
+# the counter is the stencil gate's.
+RECORDED = {
+    "sweep": [(rb_sweep.launches, (63, 63))] * 2 + [(rb_sweep.launches, (127, 127))],
+    "stencil": [(stencil_kernel.launches, ("apply", (511, 511)))] * 2
+    + [(stencil_kernel.launches, ("restrict", (255, 255))), (stencil_kernel.plain, "dtype")],
+    "empty": [],
+    "stub": [(STUB, "launch")] * 2,
+}
+
+
+@pytest.mark.parametrize("case", RECORDED)
+def test_replays_count_the_launches_their_capture_recorded(case, monkeypatch):
+    """What ops/_build.count is given during graphs.capture goes to the
+    capture's one recording, whichever module owns the counter; each replay
+    adds it to that counter and to its replayed part, an eager launch
+    counts once, and an empty recording adds nothing.  Under a capture
+    that graphs.capture did not start a launch raises and a refusal counts
+    at once."""
+    _build.clear(*KERNEL_COUNTERS)
     graphs.counters.reset()
-    with rb_sweep.recording_launches() as recorded:
-        recorded[(63, 63)] += 2
-        recorded[(127, 127)] += 1
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+    with _build.recording() as recorded:
+        for counter, key in RECORDED[case]:
+            _build.count(counter, key, _OnCard(), refusal=counter is stencil_kernel.plain)
+    assert not any(KERNEL_COUNTERS)  # a capture launches nothing
+    with pytest.raises(CudaKernelError, match="did not start"):
+        _build.count(STUB, "elsewhere", _OnCard())
+    _build.count(stencil_kernel.plain, "grad", _OnCard(), refusal=True)
+    assert stencil_kernel.plain == {"grad": 1} and not STUB
+    monkeypatch.undo()
+
+    _build.clear(*KERNEL_COUNTERS)
     graph = graphs.Graph(EagerCapture(lambda: None), recorded)
+    assert bool(graph.recorded) == bool(RECORDED[case])
     rb_sweep.count_launch((63, 63))  # an eager launch
     for _ in range(3):
         graph.replay()
-    assert rb_sweep.launches == {(63, 63): 7, (127, 127): 3}
-    assert rb_sweep.replayed == {(63, 63): 6, (127, 127): 3}
+    expected = {id(counter): collections.Counter() for counter in KERNEL_COUNTERS}
+    for counter, key in RECORDED[case]:
+        expected[id(counter)][key] += 3
+    for counter in KERNEL_COUNTERS:
+        assert _build.replayed(counter) == expected[id(counter)]
+    expected[id(rb_sweep.launches)][(63, 63)] += 1
+    for counter in KERNEL_COUNTERS:
+        assert counter == expected[id(counter)]
+    assert rb_sweep.replayed is _build.replayed(rb_sweep.launches)
     assert graphs.counters.replays == 3
-    rb_sweep.clear_counts()
+    _build.clear(*KERNEL_COUNTERS)
+
+
+def test_the_capture_layer_and_the_build_name_no_kernel():
+    """backend/graphs.py imports no kernel's module and ops/_build.py names
+    no kernel entry point: a new kernel touches its source, its wrapper and
+    the ops that call it, nothing in backend/."""
+    package = os.path.join(ROOT, "evostencils_torch")
+    for path in ("backend/graphs.py", "ops/_build.py"):
+        with open(os.path.join(package, path)) as f:
+            source = f.read()
+        imported = []
+        for node in ast.walk(ast.parse(source)):
+            if isinstance(node, ast.Import):
+                imported += [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                imported += [f"{node.module}.{alias.name}" for alias in node.names]
+        assert not [name for name in imported
+                    if "rb_sweep" in name or "stencil_kernel" in name], (path, imported)
+        if path == "ops/_build.py":
+            assert "rb_sweep_f32" not in source and "stencil2d_" not in source
 
 
 def test_cuda_graphs_flag_rules():

@@ -197,37 +197,6 @@ def test_cpu_calls_take_the_plain_path_and_count_once():
         intergrid.inject_to_fine(coarse, (15, 15), (2, 2)), TRANSFERS["bilinear"]))
 
 
-class _StubGraph:
-    def replay(self):
-        pass
-
-
-def test_replays_count_the_stencil_launches_and_refusals_their_capture_recorded():
-    rb_sweep.clear_counts()
-    with counts_cleared(), stencil_kernel.recording() as recorded:
-        recorded.launches[("apply", (511, 511))] += 2
-        recorded.launches[("restrict", (255, 255))] += 1
-        recorded.plain["dtype"] += 1
-    graph = graphs.Graph(_StubGraph(), collections.Counter(), recorded)
-    with counts_cleared():
-        for _ in range(3):
-            graph.replay()
-        assert stencil_kernel.launches == {("apply", (511, 511)): 6,
-                                           ("restrict", (255, 255)): 3}
-        assert stencil_kernel.plain == {"dtype": 3}
-        assert not rb_sweep.launches
-
-
-def test_a_graph_without_stencil_work_counts_none():
-    with stencil_kernel.recording() as recorded:
-        pass
-    graph = graphs.Graph(_StubGraph(), collections.Counter(), recorded)
-    assert graph.stencil_counts is None
-    with counts_cleared():
-        graph.replay()
-        assert not stencil_kernel.launches and not stencil_kernel.plain
-
-
 # ---------------------------------------------------------------------------
 # The card: the kernel against the plain chain, bit for bit.
 # ---------------------------------------------------------------------------

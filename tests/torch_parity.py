@@ -8,7 +8,6 @@ textbook V-cycle with a chosen smoother on either side.
 
 from __future__ import annotations
 
-import collections
 import contextlib
 import random
 from typing import NamedTuple
@@ -165,7 +164,7 @@ def eager_capture(fn, warmup=1, pool=None):
     for _ in range(warmup):
         fn()
     graphs.counters.add("captures")
-    return graphs.Graph(EagerCapture(fn), collections.Counter()), None
+    return graphs.Graph(EagerCapture(fn)), None
 
 
 @pytest.fixture

@@ -74,6 +74,7 @@ the preconditioner).
 
 from __future__ import annotations
 
+import collections
 import math
 import threading
 import time
@@ -95,6 +96,11 @@ from evostencils_torch.ops import stencil_ops as sops
 from evostencils_torch.parallel.mesh import gather_state
 from evostencils_torch.stencils import periodic
 from evostencils_torch.utils import profiling
+
+# The probe states a generator keeps at once, the least recently used
+# dropped first: one per level evaluated is the common case, and a run that
+# moves the sample-spread seeds rebuilds rather than grows.
+PROBE_STATE_ENTRIES = 8
 
 # A power-iteration rate of exactly 0.0 is an f32 underflow of a superb
 # cycle's error norm — clamp to a finite, best-ordered value.
@@ -333,6 +339,14 @@ class TorchProgramGenerator:
         # re-measurement (Problem.initial_state).
         self.rhs_seed = None
         self.init_seed = None
+        # The probe state's device fields by what they are made from
+        # (_probe_state), built once a key under `_probe_lock` and handed
+        # out as they are: every loop copies its inputs into its own
+        # buffers.  Hits and builds are counted in vm_stats().
+        self._probe_states = collections.OrderedDict()
+        self._probe_lock = threading.Lock()
+        self.probe_state_hits = 0
+        self.probe_state_builds = 0
         self._consecutive_device_failures = 0
         # How many solver builds took the cycle-VM path vs IR lowering, the
         # misses a program too long for the largest pad class caused, and
@@ -373,6 +387,8 @@ class TorchProgramGenerator:
             "vm_pad_overflows": self.vm_pad_overflows,
             "vm_isa_recompiles": self.vm_isa_recompiles,
             "vm_hit_rate": (self.vm_hits / total) if total else None,
+            "probe_state_hits": self.probe_state_hits,
+            "probe_state_builds": self.probe_state_builds,
         }
 
     def graph_stats(self) -> dict:
@@ -794,18 +810,39 @@ class TorchProgramGenerator:
     def _probe_state(self, expression):
         """(u0, f, e0, zf) on the device at the expression's level: the
         problem's initial state, the power iteration's seeded random error
-        and its zero right-hand side."""
+        and its zero right-hand side.  Built once for each key of what they
+        are made from, then the same tensors: no caller writes them."""
         with profiling.span("evaluate.probe_state"):
-            u0_host, f_host = self.problem.initial_state(
-                self.dtype, level=self._expression_level(expression),
-                rhs_seed=self.rhs_seed, init_seed=self.init_seed,
-            )
-            rng = np.random.default_rng(self._probe_error_seed())
-            e0 = self._to_device(
-                rng.standard_normal(x.shape).astype(self._np_dtype) for x in u0_host
-            )
-            zf = self._to_device(np.zeros(x.shape, self._np_dtype) for x in u0_host)
-            return self._to_device(u0_host), self._to_device(f_host), e0, zf
+            level = self._expression_level(expression)
+            rhs_functions = self.problem.rhs_functions
+            # The error's seed follows from the two sample-spread seeds.
+            key = (level, self.dtype, self.device, self._param_sig, id(rhs_functions),
+                   self.rhs_seed, self.init_seed)
+            with self._probe_lock:
+                entry = self._probe_states.get(key)
+                if entry is not None:
+                    self._probe_states.move_to_end(key)
+                    self.probe_state_hits += 1
+                    return entry[1]
+                state = self._build_probe_state(level)
+                # The entry holds rhs_functions, so its id names no other
+                # object while the key lives.
+                self._probe_states[key] = (rhs_functions, state)
+                if len(self._probe_states) > PROBE_STATE_ENTRIES:
+                    self._probe_states.popitem(last=False)
+                self.probe_state_builds += 1
+                return state
+
+    def _build_probe_state(self, level: int):
+        """The probe state at `level` from numpy, uploaded field by field."""
+        u0_host, f_host = self.problem.initial_state(
+            self.dtype, level=level, rhs_seed=self.rhs_seed, init_seed=self.init_seed)
+        rng = np.random.default_rng(self._probe_error_seed())
+        e0 = self._to_device(
+            rng.standard_normal(x.shape).astype(self._np_dtype) for x in u0_host
+        )
+        zf = self._to_device(np.zeros(x.shape, self._np_dtype) for x in u0_host)
+        return self._to_device(u0_host), self._to_device(f_host), e0, zf
 
     def _power_verdict(self, rate, infinity):
         """(ρ, iterations, result) from a power-iteration rate.  `result`

@@ -639,3 +639,49 @@ def test_batched_group_on_the_card_matches_its_single_evaluations(cuda):
         assert abs(rho - rho_single) <= 1e-5 * rho_single
         assert abs(it - it_single) <= 1
     assert 8 in generator.graph_stats()["buckets"]
+
+
+@pytest.mark.cuda
+def test_a_probe_state_hit_scores_as_its_build_on_graphs(cuda):
+    """The search pool's first 8 trees at 511² on CUDA graphs: a fresh
+    generator's first pass (one probe state built, every graph captured),
+    then each tree with its probe state built anew and then from the cache.
+    The build and the hit give the first pass's ρ, iterations and class,
+    and the same graph replays and host reads."""
+    from evostencils_torch.backend import graphs
+
+    problem = poisson_2d(5, 9, dtype=torch.float32)
+    pset, _ = generate_primitive_set(
+        problem.approximation(), problem.rhs(), problem.dimension, problem.coarsening_factors,
+        problem.max_level, problem.equations, problem.operators, problem.fields, depth=4,
+        maximum_local_system_size=8)
+    with open(os.path.join(os.path.dirname(os.path.dirname(__file__)), "portbench", "data",
+                           "poisson2d_511_trees.txt")) as fh:
+        trees = [gp.parse_tree(line.strip(), pset) for line in fh if line.strip()][:8]
+    generator = TorchProgramGenerator(problem, dtype=torch.float32, iteration_limit=500,
+                                      device=cuda)
+    infinity = 1e100
+
+    def evaluate(tree):
+        before = graphs.counters.as_dict()
+        t, rho, iterations = generator.generate_and_evaluate(
+            gp.compile_tree(tree, pset)[0], infinity=infinity, evaluation_samples=1)
+        torch.cuda.synchronize()
+        after = graphs.counters.as_dict()
+        verdict = ("poisoned" if not rho < infinity else
+                   "diverged" if not t < infinity else "converged")
+        return (rho, iterations, verdict), tuple(
+            after[name] - before[name] for name in ("replays", "host_reads"))
+
+    first = [evaluate(tree)[0] for tree in trees]
+    assert (generator.probe_state_builds, generator.probe_state_hits) == (1, 7)
+    assert any(verdict == "converged" for _, _, verdict in first)
+    for tree, fitness in zip(trees, first):
+        generator._probe_states.clear()
+        built = evaluate(tree)
+        hits = generator.probe_state_hits
+        hit = evaluate(tree)
+        assert generator.probe_state_hits == hits + 1
+        assert built[0] == hit[0] == fitness
+        assert built[1] == hit[1] and hit[1][0] > 0 and hit[1][1] > 0
+    assert generator.probe_state_builds == 1 + len(trees)

@@ -20,7 +20,8 @@ card, and a "replay" calls it again).
   through the split BiCGStab loop gives the eager solve's iterate, count
   and residual bit for bit.
 * `vm_stats()` matches the JAX generator's key for key on the same trees
-  and a tree that registers a branch lazily; a program past 320
+  and a tree that registers a branch lazily (the port adds only its probe
+  state's two counters); a program past 320
   instructions is a pad overflow on both VMs.
 """
 
@@ -345,7 +346,11 @@ def test_vm_stats_match_the_reference_generator():
             else:
                 expr = side.compile(TREES[item])
             generator._build_solver(expr)
-        assert port.vm_stats() == reference.vm_stats(), item
+        stats = port.vm_stats()
+        assert {k: stats[k] for k in reference.vm_stats()} == reference.vm_stats(), item
+        # The port's own keys: the probe state's cache (no evaluation here).
+        assert set(stats) - set(reference.vm_stats()) == {"probe_state_hits",
+                                                          "probe_state_builds"}
     assert port.vm_stats()["vm_isa_recompiles"] == 1
     assert port.vm_stats()["vm_hits"] == len(order)
 
@@ -379,4 +384,5 @@ def test_a_program_past_320_instructions_is_a_pad_overflow():
     _, omega_arg = port._build_solver(chain(port_side, PAD_CLASSES[-1] + 1))
     assert len(omega_arg) == PAD_CLASSES[-1] + 1
     assert port.vm_stats() == {"vm_hits": 0, "vm_misses": 1, "vm_pad_overflows": 1,
-                               "vm_isa_recompiles": 0, "vm_hit_rate": 0.0}
+                               "vm_isa_recompiles": 0, "vm_hit_rate": 0.0,
+                               "probe_state_hits": 0, "probe_state_builds": 0}

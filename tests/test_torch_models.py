@@ -244,8 +244,10 @@ def test_evaluation_report_and_bandwidth(tmp_path):
     report = profiling.evaluation_report(generator)
     assert set(report) == {"run_time_s", "solver_cache_entries", "device_failures", "groups",
                            "group_members", "vm_hits", "vm_misses", "vm_pad_overflows",
-                           "vm_isa_recompiles", "vm_hit_rate"}
+                           "vm_isa_recompiles", "vm_hit_rate", "probe_state_hits",
+                           "probe_state_builds"}
     assert report["vm_hits"] + report["vm_misses"] == 1 and report["solver_cache_entries"] == 1
+    assert (report["probe_state_builds"], report["probe_state_hits"]) == (1, 0)
     expression = reference_cycles.generate_v_cycle(side.terminals, problem.rhs(), 2, 1)
     with profiling.trace(str(tmp_path / "trace"), device="cpu") as traced:
         generator.generate_and_evaluate(expression, evaluation_samples=1)

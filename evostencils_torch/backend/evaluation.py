@@ -110,6 +110,13 @@ ZERO_RATE_CLAMP = 1e-16
 # bucket that holds it, and a larger group is split at the largest.
 GROUP_BUCKETS = (2, 4, 8, 16)
 
+# Why a group left the batched path, as counted in `group_fallbacks`: an
+# outer solver, FAS or a 64-bit dtype (no power iteration to share), a
+# member whose VM program differs, a split above the largest bucket, an
+# error the reference catches, and a device fault in the batched loop.
+GROUP_FALLBACKS = ("outer", "fas", "dtype64", "program_differs", "split", "error",
+                   "device_fault")
+
 # Device faults that poison one individual (a run of them aborts); checked
 # before the RuntimeError family they belong to.
 _DEVICE_ERRORS = (torch.cuda.OutOfMemoryError,) + (
@@ -360,11 +367,17 @@ class TorchProgramGenerator:
         self._vm_structures = set()
         # Groups scored by generate_and_evaluate_group, and their members
         # (members of a group that fell back one by one are not counted);
-        # the part of them whose power iterations ran as one batched loop.
+        # the part of them whose power iterations ran as one batched loop;
+        # the groups that fell back, by reason (GROUP_FALLBACKS); and of the
+        # batched loops, the member blocks run (bucket × blocks) and those
+        # the real members needed before their own `cond` ended.
         self.groups = 0
         self.group_members = 0
         self.groups_batched = 0
         self.batched_members = 0
+        self.group_fallbacks = dict.fromkeys(GROUP_FALLBACKS, 0)
+        self.member_blocks_run = 0
+        self.member_blocks_used = 0
         # Wall seconds spent in generate_and_evaluate_group.
         self.group_s = 0.0
         # The batched group path's interpreters, one per (VM, bucket).
@@ -389,6 +402,20 @@ class TorchProgramGenerator:
             "vm_hit_rate": (self.vm_hits / total) if total else None,
             "probe_state_hits": self.probe_state_hits,
             "probe_state_builds": self.probe_state_builds,
+        }
+
+    def group_stats(self) -> dict:
+        """What the group path did: groups and members scored, the batched
+        part, the fallbacks by reason and the batched loops' member blocks,
+        run and used."""
+        return {
+            "groups": self.groups,
+            "group_members": self.group_members,
+            "groups_batched": self.groups_batched,
+            "batched_members": self.batched_members,
+            "group_fallbacks": dict(self.group_fallbacks),
+            "member_blocks_run": self.member_blocks_run,
+            "member_blocks_used": self.member_blocks_used,
         }
 
     def graph_stats(self) -> dict:
@@ -732,7 +759,7 @@ class TorchProgramGenerator:
             members = e0[0].shape[0]
             loop = self._loop(key + ("power", members), step, omega_arg, e0,
                               lambda cycle: BatchedPowerLoop(cycle, member_norms), members)
-            with profiling.span("loop.power"), loop.lock:
+            with profiling.span("loop.power_batched"), loop.lock:
                 loop.load(e0, zf, omega_arg)
                 loop.block()
                 rate = graphs.read(loop.rate).astype(np_dt)
@@ -1256,14 +1283,18 @@ class TorchProgramGenerator:
         the single-member stage solve, and every later survivor shares it.
         Members go one by one in the reference's own cases (an outer
         solver, FAS, a 64-bit dtype, a member whose program differs, an
-        error the reference catches); on a device mesh the power iterations
-        run one member at a time.  Returns a list of
-        (time_to_convergence_ms, ρ, iterations) triples.
+        error the reference catches, a device fault in the batched loop:
+        the single path then poisons only a member that faults alone),
+        each counted in `group_fallbacks`; on a device mesh the power
+        iterations run one member at a time.  The call is the root span
+        `evaluate_group`.  Returns a list of (time_to_convergence_ms, ρ,
+        iterations) triples.
         """
         t0 = time.perf_counter()
         try:
-            return self._evaluate_group(expressions, infinity, evaluation_samples,
-                                        global_variable_values)
+            with profiling.span("evaluate_group", root=True):
+                return self._evaluate_group(expressions, infinity, evaluation_samples,
+                                            global_variable_values)
         finally:
             self.group_s += time.perf_counter() - t0
 
@@ -1272,7 +1303,40 @@ class TorchProgramGenerator:
         if global_variable_values:
             self._apply_parameter_values(global_variable_values)
 
-        def one_by_one():
+        # The 64-bit measurement has no power iteration to share.
+        if getattr(self.problem, "outer_solver", None):
+            reason = "outer"
+        elif self.uses_FAS():
+            reason = "fas"
+        elif dtype_is_64bit(self.dtype):
+            reason = "dtype64"
+        else:
+            reason = None
+        if reason is None:
+            bucket = group_bucket(len(expressions))
+            if len(expressions) > bucket:
+                # As the reference: the halves drop global_variable_values.
+                self.group_fallbacks["split"] += 1
+                return self._evaluate_group(
+                    expressions[:bucket], infinity, evaluation_samples, None
+                ) + self._evaluate_group(
+                    expressions[bucket:], infinity, evaluation_samples, None
+                )
+            try:
+                batch = self._group_rates(expressions, bucket)
+                if batch is None:
+                    reason = "program_differs"
+            except _RANK_ERRORS:
+                raise
+            except _DEVICE_ERRORS:
+                # The batch's fault, not the members': as the reference,
+                # they go one by one.
+                reason = "device_fault"
+            except (RuntimeError, ValueError, TypeError, NotImplementedError,
+                    FloatingPointError):
+                reason = "error"
+        if reason is not None:
+            self.group_fallbacks[reason] += 1
             return [
                 self.generate_and_evaluate(
                     e, infinity=infinity, evaluation_samples=evaluation_samples,
@@ -1281,52 +1345,7 @@ class TorchProgramGenerator:
                 for e in expressions
             ]
 
-        # The 64-bit measurement has no power iteration to share.
-        if (getattr(self.problem, "outer_solver", None) or self.uses_FAS()
-                or dtype_is_64bit(self.dtype)):
-            return one_by_one()
-        try:
-            (stage_solve, power_solve, _), omega_arg0 = self._build_solver(expressions[0])
-            if isinstance(omega_arg0, Program):
-                # Same-structure programs share opcodes; each member brings
-                # its own ω.
-                vm = self._vm_for(self._expression_level(expressions[0]))
-                omega_args = []
-                for e in expressions:
-                    program = vm.translate(e)
-                    if program is None or not np.array_equal(program.opcodes, omega_arg0.opcodes):
-                        raise RuntimeError("no group path")
-                    omega_args.append(program)
-            else:
-                omega_args = [self._omega_vector(e) for e in expressions]
-            bucket = group_bucket(len(expressions))
-            if len(expressions) > bucket:
-                # As the reference: the halves drop global_variable_values.
-                return self._evaluate_group(
-                    expressions[:bucket], infinity, evaluation_samples, None
-                ) + self._evaluate_group(
-                    expressions[bucket:], infinity, evaluation_samples, None
-                )
-            u0, f, e0, zf = self._probe_state(expressions[0])
-            if self.layout is not None:
-                rates = [float(power_solve(e0, zf, w)[0]) for w in omega_args]
-            else:
-                rates = self._batched_rates(power_solve, e0, zf, omega_args, bucket)
-                self.groups_batched += 1
-                self.batched_members += len(expressions)
-            self._consecutive_device_failures = 0
-            self.groups += 1
-            self.group_members += len(expressions)
-        except _RANK_ERRORS:
-            raise
-        except _DEVICE_ERRORS:
-            # A device fault poisons the members, as it poisons a single
-            # evaluation; it never sends them one by one.
-            self._device_failed()
-            return [(infinity, infinity, infinity) for _ in expressions]
-        except (RuntimeError, ValueError, TypeError, NotImplementedError, FloatingPointError):
-            return one_by_one()
-
+        stage_solve, u0, f, omega_args, rates = batch
         results = []
         t_iter_ms = None
         for omegas, rate in zip(omega_args, rates):
@@ -1345,12 +1364,42 @@ class TorchProgramGenerator:
             results.append((iterations * t_iter_ms, rho, iterations))
         return results
 
-    @staticmethod
-    def _batched_rates(power_solve, e0, zf, omega_args, bucket: int) -> list:
+    def _group_rates(self, expressions, bucket: int):
+        """(stage_solve, u0, f, omega_args, rates) of a group of at most
+        `bucket` members, their power iterations run as one batched loop
+        (one member at a time on a mesh); None when a member's VM program
+        differs from the first's."""
+        (stage_solve, power_solve, _), omega_arg0 = self._build_solver(expressions[0])
+        if isinstance(omega_arg0, Program):
+            # Same-structure programs share opcodes; each member brings its
+            # own ω.
+            vm = self._vm_for(self._expression_level(expressions[0]))
+            omega_args = []
+            for e in expressions:
+                program = vm.translate(e)
+                if program is None or not np.array_equal(program.opcodes, omega_arg0.opcodes):
+                    return None
+                omega_args.append(program)
+        else:
+            omega_args = [self._omega_vector(e) for e in expressions]
+        u0, f, e0, zf = self._probe_state(expressions[0])
+        if self.layout is not None:
+            rates = [float(power_solve(e0, zf, w)[0]) for w in omega_args]
+        else:
+            rates = self._batched_rates(power_solve, e0, zf, omega_args, bucket)
+            self.groups_batched += 1
+            self.batched_members += len(expressions)
+        self._consecutive_device_failures = 0
+        self.groups += 1
+        self.group_members += len(expressions)
+        return stage_solve, u0, f, omega_args, rates
+
+    def _batched_rates(self, power_solve, e0, zf, omega_args, bucket: int) -> list:
         """The members' power-iteration rates from one batched loop of
         `bucket` members: the probe's error and zero right-hand side for
         every member, the rows past the group's carrying its first member's
-        ω; those rows' rates are dropped."""
+        ω; those rows' rates are dropped.  The loop's member blocks are
+        counted: run, bucket × its blocks; used, each real member's own."""
         padded = list(omega_args) + [omega_args[0]] * (bucket - len(omega_args))
         if isinstance(padded[0], Program):
             omega_arg = batched_program(padded)
@@ -1358,7 +1407,10 @@ class TorchProgramGenerator:
             omega_arg = np.stack(padded)
         e0 = tuple(x.expand((bucket,) + tuple(x.shape)).contiguous() for x in e0)
         zf = tuple(x.new_zeros((bucket,) + tuple(x.shape)) for x in zf)
-        rates, _ = power_solve.batched(e0, zf, omega_arg)
+        rates, cycles = power_solve.batched(e0, zf, omega_arg)
+        blocks = cycles // PowerLoop.BLOCK_LEN
+        self.member_blocks_run += bucket * int(blocks.max())
+        self.member_blocks_used += int(blocks[:len(omega_args)].sum())
         return [float(rate) for rate in rates[:len(omega_args)]]
 
     def evaluate_objectives(self, expression, evaluation_samples=3, infinity=1e100):

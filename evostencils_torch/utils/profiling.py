@@ -19,7 +19,8 @@ evostencils_tpu/utils/profiling.py).
     measurement path never runs untraced in silence.
   * `evaluation_report(generator)` — structured counters of a
     TorchProgramGenerator: measured seconds, cycle-VM hit rates, cache
-    size, device faults, same-structure groups.
+    size, device faults, same-structure groups (`group_stats()`: the batched
+    part, fallbacks by reason, member blocks run and used).
 """
 
 from __future__ import annotations
@@ -226,8 +227,7 @@ def evaluation_report(generator) -> dict:
         "run_time_s": round(generator.run_time_total, 3),
         "solver_cache_entries": len(generator._solver_cache),
         "device_failures": generator._consecutive_device_failures,
-        "groups": generator.groups,
-        "group_members": generator.group_members,
     }
+    report.update(generator.group_stats())
     report.update(generator.vm_stats())
     return report

@@ -22,7 +22,13 @@ sweep.  Inputs come from numpy seeds.
 * Members that the power iteration decides inside a batch (∞, ρ ≥ 1, over
   the cap) leave their neighbours' results as they are.
 * The one-by-one cases: float64, FAS, an outer solver and a member whose
-  program differs.
+  program differs, each counted under its reason in `group_fallbacks`; a
+  group above the largest bucket counts as a split.
+* A device fault in the batched loop sends the members one by one, as the
+  reference does: each member is its own evaluation, no device failure is
+  left counted, and the fault counts under `device_fault`.
+* The batched loop's member blocks: run, bucket × the loop's blocks; used,
+  each real member's own blocks, padding rows never.
 """
 
 import math
@@ -39,7 +45,7 @@ from evostencils_tpu.ops.pallas_kernels import (
 from evostencils_tpu.problems.poisson import poisson_2d as jax_poisson_2d
 from evostencils_tpu.stencils import constant as jax_constant
 from evostencils_torch.backend.evaluation import (
-    GROUP_BUCKETS, TorchProgramGenerator, group_bucket)
+    GROUP_BUCKETS, PowerLoop, TorchProgramGenerator, group_bucket)
 from evostencils_torch.backend.lowering import CycleLowering
 from evostencils_torch.ir import base, krylov as ir_krylov
 from evostencils_torch.ops import coarse_solve, intergrid, krylov, rb_sweep, smoothers
@@ -263,6 +269,8 @@ def test_group_through_the_vm_matches_single_evaluation(n):
     generator = TorchProgramGenerator(problem, dtype=torch.float32, device="cpu")
     _check_group(generator, _variants(Side(PORT, problem), n, n))
     assert generator.groups_batched == (2 if n > 16 else 1)
+    assert generator.group_fallbacks == {**dict.fromkeys(generator.group_fallbacks, 0),
+                                         "split": int(n > 16)}
     assert generator.vm_stats()["vm_misses"] == 0
 
 
@@ -348,11 +356,12 @@ def test_one_by_one_cases():
         fas.fas_2d(dtype=torch.float32),
         helmholtz.helmholtz_2d(3, 5, k=20.0, dtype=torch.complex64),
     ]
-    for problem in cases:
+    for problem, reason in zip(cases, ("dtype64", "fas", "outer")):
         generator = TorchProgramGenerator(problem, device="cpu")
         calls = _stub(generator)
         assert generator.generate_and_evaluate_group(["a", "b"]) == [(1.0, 0.5, 2)] * 2
         assert calls == ["a", "b"] and generator.groups == generator.groups_batched == 0
+        assert generator.group_stats()["group_fallbacks"][reason] == 1
 
     problem = poisson.poisson_2d(3, 5, dtype=torch.float32)
     side = Side(PORT, problem)
@@ -361,3 +370,43 @@ def test_one_by_one_cases():
     calls = _stub(generator)
     assert len(generator.generate_and_evaluate_group(members)) == 2
     assert calls == members and generator.groups_batched == 0
+    assert generator.group_fallbacks["program_differs"] == 1
+
+
+def test_a_device_fault_in_the_batched_loop_sends_the_members_one_by_one(monkeypatch):
+    problem = poisson.poisson_2d(3, 5, dtype=torch.float32)
+    members = _variants(Side(PORT, problem), 5, 50)
+    generator = TorchProgramGenerator(problem, dtype=torch.float32, device="cpu")
+    (_, power_solve, _), _ = generator._build_solver(members[0])
+
+    def fault(*args):
+        raise torch.cuda.OutOfMemoryError("a batch too large for the card")
+
+    monkeypatch.setattr(power_solve, "batched", fault)
+    group = generator.generate_and_evaluate_group(members, infinity=INFINITY,
+                                                  evaluation_samples=1)
+    assert generator._consecutive_device_failures == 0
+    assert generator.group_fallbacks["device_fault"] == 1
+    assert generator.groups == generator.groups_batched == 0
+    singles = [generator.generate_and_evaluate(e, infinity=INFINITY, evaluation_samples=1)
+               for e in members]
+    assert [g[1:] for g in group] == [s[1:] for s in singles]
+    assert all(t < INFINITY for t, _, _ in group + singles)
+
+
+def test_member_blocks_run_and_used():
+    """Five red-black V(2,1) members in bucket 8 that settle after 3 or 4
+    blocks: the loop runs 4 blocks of 8 rows; the members use their own."""
+    problem = poisson.poisson_2d(3, 5, dtype=torch.float32)
+    side = Side(PORT, problem)
+    members = [side.cycle(2, 1, w) for w in (0.15, 0.6, 1.0, 1.5, 1.85)]
+    generator = TorchProgramGenerator(problem, dtype=torch.float32, device="cpu")
+    generator.generate_and_evaluate_group(members, infinity=INFINITY, evaluation_samples=1)
+    stats = generator.group_stats()
+    own = []
+    for e in members:
+        generator.generate_and_evaluate(e, infinity=INFINITY, evaluation_samples=1)
+        own.append(generator.last_cycle_solve["power_cycles"] // PowerLoop.BLOCK_LEN)
+    assert len(set(own)) > 1
+    assert stats["member_blocks_run"] == 8 * max(own)
+    assert stats["member_blocks_used"] == sum(own)

@@ -243,7 +243,9 @@ def test_evaluation_report_and_bandwidth(tmp_path):
         evaluation_samples=1)
     report = profiling.evaluation_report(generator)
     assert set(report) == {"run_time_s", "solver_cache_entries", "device_failures", "groups",
-                           "group_members", "vm_hits", "vm_misses", "vm_pad_overflows",
+                           "group_members", "groups_batched", "batched_members",
+                           "group_fallbacks", "member_blocks_run", "member_blocks_used",
+                           "vm_hits", "vm_misses", "vm_pad_overflows",
                            "vm_isa_recompiles", "vm_hit_rate", "probe_state_hits",
                            "probe_state_builds"}
     assert report["vm_hits"] + report["vm_misses"] == 1 and report["solver_cache_entries"] == 1
